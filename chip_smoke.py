@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's SLAM step on one CUDA card and check it.
+"""Drive the PyTorch port's SLAM step and replay driver on one CUDA card and
+check them.
 
 Run from the repository root:
 
@@ -10,20 +11,30 @@ Phases, one line each:
      fails when torch sees no CUDA device
   1. build the hand-written kernels from slam_robot_tpu_torch/csrc with nvcc
   2. the blur kernel (B2) against its plain PyTorch version on every level
-     shape of a 480x640 pyramid plus an odd shape, atol 1e-5, with times
+     shape of a 480x640 pyramid plus an odd shape, atol 1e-5, with times,
+     the time of the one-call PyTorch equivalent (reflect pad + conv2d) and
+     the bound
   3. the Newton level kernel (B1) against its plain version for F=32 and
      F=256 lanes, windows cut from a rendered bench frame's pyramid with
      perturbed starts, every level (the coarsest window is 31x32), with times
+     and the bound; group=4 equals group=1 bit for bit
   4. the main path: pipeline.init(SlamConfig()), then the bench sweep's
      first 64 frames rendered by the port, with maybe_polish; launch counters,
      NaN/Inf, map size, dropped rows, the normalize canary and the
      Sim(3)-aligned trajectory error against the sweep's ground truth
   5. with --profile K: torch.profiler over frames 64..63+K (device busy
      time, launches, host time by span); tables written to --out
+  6. the replay driver (run_replay.main, in-process) at 640x480 with the
+     default SlamConfig: 16 SyntheticSource frames recorded as .npy, replayed
+     with --final-ba --dump, replayed again with --live (same summary),
+     --synthetic 16, --synthetic 4 --debug-numerics, and checked_step on a
+     frame with a NaN block; 11 blur launches per frame and Newton launches
+     on every run
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Any failure raises, and the
-script exits non-zero without printing that line.
+The line before the last is a JSON object with one entry per kernel, its
+launches counted over phases 4 and 6; the last line is
+{"ok": true, "device": {...}}. Any failure raises, and the script exits
+non-zero without printing that line.
 """
 
 from __future__ import annotations
@@ -38,6 +49,28 @@ import time
 
 # the main path's length: keyframes, slow windows, polish at 20, xslow at 48
 MAIN_FRAMES = 64
+# the replay runs' length: 2 keyframes and both BA windows, within ~60 s
+REPLAY_FRAMES = 16
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
+# float32 FLOP/s outside the tensor cores (both kernels are float32 CUDA-core
+# code)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# B2: one 5-tap pass is 5 multiplies and 4 adds per output value
+BLUR_FLOPS_PER_TAP_PASS = 9
+# B1: per patch pixel and Newton iteration, counted from csrc/newton.cu:
+# bilinear value and derivatives 16, first moments 18, residual derivatives
+# and g/H sums 56
+NEWTON_FLOPS_PER_PIXEL_ITER = 90
+
+
+def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of bytes over HBM
+    bandwidth and float32 operations over peak, and which of the two it is."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_flops / FP32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _card_line() -> str:
@@ -99,6 +132,24 @@ def phase_blur(frame):
     if not max_err <= 1e-5:
         raise AssertionError(f"blur kernel disagrees with its plain version: {max_err}")
 
+    # the one-call PyTorch equivalent (timed as a yardstick, never used by
+    # the port): reflect pad, a 5x5 conv2d with the outer product of the
+    # taps, and the decimating slice where the level decimates
+    import torch.nn.functional as tf
+
+    def outer5(wts):
+        k = torch.tensor(wts, device="cuda")
+        return torch.outer(k, k)[None, None]
+
+    k2d = [outer5(wts) for _, wts, _ in calls]
+
+    def library(x, k, stride):
+        y = tf.conv2d(tf.pad(x[None, None], (2, 2, 2, 2), mode="reflect"), k)[0, 0]
+        return y[::2, ::2] if stride == 2 else y
+
+    lib_err = max(float((library(x, k, s) - bk.sep5_plain(x, wts, s)).abs().max())
+                  for x, k, (_, wts, s) in zip(inputs, k2d, calls))
+
     def run_kernel():
         for x, (_, wts, stride) in zip(inputs, calls):
             bk.sep5(x, wts, stride)
@@ -107,19 +158,57 @@ def phase_blur(frame):
         for x, (_, wts, stride) in zip(inputs, calls):
             bk.sep5_plain(x, wts, stride)
 
+    def run_library():
+        for x, k, (_, _, stride) in zip(inputs, k2d, calls):
+            library(x, k, stride)
+
     plain_ms = _time_ms(run_plain, 50)
     ms = _time_ms(run_kernel, 50)
-    plain_ms2 = _time_ms(run_plain, 50)
+    lib_ms = _time_ms(run_library, 50)
+    lib_ms2 = _time_ms(run_library, 50)
     ms2 = _time_ms(run_kernel, 50)
+    plain_ms2 = _time_ms(run_plain, 50)
     lvl0_ms = _time_ms(lambda: bk.sep5(inputs[0], g11, 1), 200)
+    # each input read once, each output written once; the two 5-tap passes
+    # over the rows that the output keeps
+    n_bytes = n_flops = 0
+    for x, (_, _, stride) in zip(inputs, calls):
+        h, w = x.shape
+        ho, wo = ((h + 1) // 2, (w + 1) // 2) if stride == 2 else (h, w)
+        n_bytes += 4 * (h * w + ho * wo)
+        n_flops += BLUR_FLOPS_PER_TAP_PASS * (ho * w + ho * wo)
+    bound_ms, bound_by = _bound(n_bytes, n_flops)
     print(f"phase 2 blur: max_abs_err {max_err:.3e} (atol 1e-5) over 11 pyramid calls "
           f"+ 47x63; 11 calls kernel {ms:.4f}/{ms2:.4f} ms, plain {plain_ms:.4f}/"
-          f"{plain_ms2:.4f} ms; 480x640 blur alone {lvl0_ms:.4f} ms", flush=True)
+          f"{plain_ms2:.4f} ms, pad+conv2d {lib_ms:.4f}/{lib_ms2:.4f} ms (its max_abs_err "
+          f"{lib_err:.3e}); bound {bound_ms:.5f} ms by {bound_by} ({n_bytes} B, "
+          f"{n_flops} flop); 480x640 blur alone {lvl0_ms:.4f} ms", flush=True)
     return {"name": "sep5_reflect101", "route": "cuda",
             "source": "slam_robot_tpu_torch/csrc/blur.cu",
             "replaces": "slam_robot_tpu/ops/pallas/blur.py:35",
             "max_abs_err": max_err, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": min(lib_ms, lib_ms2),
             "timed": "the 11 build_pyramid calls at 480x640, per frame"}
+
+
+def _newton_lane_iters(args, threshold: float, max_iters: int) -> int:
+    """Newton iterations that these lanes take (a lane stops when converged
+    or out of bounds), from the plain version's step-by-step loop: the work
+    this data needs, not the max_iters * F it could."""
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+
+    win, pos, org, ref, ref_valid, ref_mean, ref_sumsq, active, wmask, bounds = args
+    F, WH, WW = win.shape
+    status = pos.new_zeros((F,))
+    done = ~((1.0 - active) < 0.5)
+    total = 0
+    for _ in range(max_iters):
+        total += int((~done).sum())
+        pos, status, done = nk._newton_iter(
+            pos, status, done, win.reshape(F, WH * WW), WW, org, ref,
+            wmask[None] * ref_valid, ref_mean, ref_sumsq, bounds[:, 0], bounds[:, 1],
+            float(threshold), nk.SIZE, WH)
+    return total
 
 
 def phase_newton(frames):
@@ -174,6 +263,19 @@ def phase_newton(frames):
                                  torch.minimum(w - 0.01 - x, h - 0.01 - y)).abs() < 2e-3
             diff = (st_k != st_p) & ~near
             n_status_diff += int(diff.sum())
+            if F == 256 and lvl == 0:
+                # group G maps onto the same kernel: bit-identical to G = 1
+                pos_g, st_g = nk.newton_level(*args, threshold=cfg.track_threshold,
+                                              max_iters=cfg.track_max_iters, group=4)
+                if not (torch.equal(pos_g, pos_k) and torch.equal(st_g, st_k)):
+                    raise AssertionError("newton_level(group=4) differs from group=1")
+                n_bytes = sum(a.numel() * a.element_size() for a in args) \
+                    + pos_k.numel() * 4 + st_k.numel() * 4
+                lane_iters = _newton_lane_iters(args, cfg.track_threshold,
+                                                cfg.track_max_iters)
+                bound = _bound(n_bytes, NEWTON_FLOPS_PER_PIXEL_ITER * 169 * lane_iters)
+                bound_note = (f"bound {bound[0]:.5f} ms by {bound[1]} ({n_bytes} B, "
+                              f"{lane_iters} lane-iterations)")
             if lvl in (0, 5):
                 k_ms = _time_ms(lambda: nk.newton_level(*args, threshold=cfg.track_threshold,
                                                         max_iters=cfg.track_max_iters), 100)
@@ -188,13 +290,16 @@ def phase_newton(frames):
         raise AssertionError(f"newton kernel status disagrees on {n_status_diff} lanes")
     tline = ", ".join(f"F={F} L{lvl} {wh}x{ww}: kernel {k:.4f} ms plain {p:.4f} ms"
                       for (F, lvl, wh, ww), (k, p) in timing.items())
-    print(f"phase 3 newton: pos max_abs_err {max_err:.3e} (atol 2e-3), status equal; "
-          f"{tline}", flush=True)
+    print(f"phase 3 newton: pos max_abs_err {max_err:.3e} (atol 2e-3), status equal, "
+          f"group=4 equal to group=1 bit for bit; {tline}; F=256 L0 {bound_note}",
+          flush=True)
     k_ms, p_ms = timing[(256, 0, 32, 32)]
+    # no single PyTorch call computes a Newton solve: library_ms is null
     return {"name": "newton_level", "route": "cuda",
             "source": "slam_robot_tpu_torch/csrc/newton.cu",
             "replaces": "slam_robot_tpu/ops/pallas/newton.py:338",
             "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "timed": "one level-0 launch, F=256 lanes, 32x32 windows, 6 iterations",
             "all_timings": {f"F{F}_L{lvl}_{wh}x{ww}": {"ms": k, "plain_ms": p}
                             for (F, lvl, wh, ww), (k, p) in timing.items()}}
@@ -326,6 +431,123 @@ def phase_profile(ps, frames, start: int, out_dir: str, step_ms: float):
     return summary
 
 
+def _state_leaves(ps):
+    """Every tensor of a PipelineState, in field order."""
+    out = []
+    for v in ps:
+        out.extend(_state_leaves(v) if isinstance(v, tuple) else [v])
+    return out
+
+
+def phase_replay(card: str):
+    """Drive run_replay.main in-process on the card; returns (counts, runs)."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from slam_robot_tpu_torch import SlamConfig, run_replay
+    from slam_robot_tpu_torch.io.recorder import Recorder
+    from slam_robot_tpu_torch.io.sources import SyntheticSource
+    from slam_robot_tpu_torch.models import pipeline
+    from slam_robot_tpu_torch.ops.cuda import blur as bk
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+
+    root = Path(__file__).resolve().parent / "build" / "replay"
+    shutil.rmtree(root, ignore_errors=True)
+    frames_dir, dump_path = root / "frames", root / "z"
+    cfg = SlamConfig()
+    # the card has no PIL: record .npy, the bytes both replays read
+    src = SyntheticSource(cfg, n_frames=REPLAY_FRAMES, device="cuda")
+    rec = Recorder(str(frames_dir), fmt="npy")
+    for i in range(REPLAY_FRAMES):
+        rec.save(i, src.get(i % 2, i))
+    rec.close()
+
+    counts = {"sep5_reflect101": 0, "newton_level": 0}
+    runs = {}
+
+    def run(name, argv, n_frames):
+        bk.KERNEL.launches = 0
+        nk.KERNEL.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run_replay.main(argv + ["--device", "cuda", "--quiet"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = out.getvalue()
+        if rc != 0:
+            raise AssertionError(f"run_replay {name} exited {rc}: {text[-2000:]}")
+        summary = json.loads(text.strip().splitlines()[-1])
+        launches = {"sep5_reflect101": bk.KERNEL.launches, "newton_level": nk.KERNEL.launches}
+        for k, v in launches.items():
+            counts[k] += v
+        if summary["frames"] != n_frames:
+            raise AssertionError(f"{name}: {summary['frames']} frames, want {n_frames}: "
+                                 f"{text[-2000:]}")
+        if launches["sep5_reflect101"] != 11 * n_frames:
+            raise AssertionError(f"{name}: blur launches {launches} != 11 per frame")
+        if launches["newton_level"] <= 0:
+            raise AssertionError(f"{name}: the Newton kernel never ran")
+        if not math.isfinite(summary["error"]):  # the last BA cost
+            raise AssertionError(f"{name}: BA cost {summary['error']}")
+        if summary["n_points"] <= 5:
+            raise AssertionError(f"{name}: map too small: {summary}")
+        runs[name] = {"call_s": wall, "summary": summary, "launches": launches}
+        return summary, text
+
+    load = ["--load", str(frames_dir), "--max-frames", str(REPLAY_FRAMES)]
+    replay, text = run("replay", load + ["--final-ba", "--dump", str(dump_path)],
+                       REPLAY_FRAMES)
+    final = re.search(r"final full BA: (\d+) iters, mean reproj err (\S+)px", text)
+    if final is None or not math.isfinite(float(final.group(2))):
+        raise AssertionError(f"final BA line missing or not finite: {text[-1000:]}")
+    dump_lines = dump_path.read_text().splitlines()
+    if len(dump_lines) < REPLAY_FRAMES:
+        raise AssertionError(f"map dump has {len(dump_lines)} lines")
+    runs["replay"]["final_ba"] = {"iters": int(final.group(1)),
+                                  "mean_reproj_err_px": float(final.group(2)),
+                                  "dump_lines": len(dump_lines)}
+    live, _ = run("live", load + ["--live"], REPLAY_FRAMES)
+    keys = ("frames", "iterations", "n_points", "n_obs")
+    if any(live[k] != replay[k] for k in keys):
+        raise AssertionError(f"live and replay summaries differ: {live} vs {replay}")
+    run("synthetic", ["--synthetic", str(REPLAY_FRAMES)], REPLAY_FRAMES)
+    run("checked", ["--synthetic", "4", "--debug-numerics"], 4)
+
+    # checked_step on the first recorded frame: clean, it returns no error
+    # and step's state exactly; with a 10x10 NaN block it names the NaN
+    ps0 = pipeline.init(cfg, device="cuda")
+    img = torch.as_tensor(np.load(frames_dir / f"{0:08d}.npy"), device="cuda")
+    ps_step, _ = pipeline.step(ps0, img, cfg)
+    err, (ps_checked, _) = pipeline.checked_step(ps0, img, cfg)
+    if err.get() is not None:
+        raise AssertionError(f"checked_step flagged a clean frame: {err.get()}")
+    if not all(torch.equal(a, b) for a, b in
+               zip(_state_leaves(ps_step), _state_leaves(ps_checked))):
+        raise AssertionError("checked_step's state differs from step's")
+    bad = img.clone()
+    bad[200:210, 300:310] = float("nan")
+    err, _ = pipeline.checked_step(ps0, bad, cfg)
+    msg = err.get()
+    if msg is None or "nan" not in msg.lower():
+        raise AssertionError(f"checked_step missed a NaN frame: {msg}")
+    runs["checked"]["nan_frame_error"] = msg
+    # call_s: the whole main() call (init, source, final BA); the summary's
+    # wall_s and fps: run_replay's own frame loop
+    line = {name: {"call_s": r["call_s"], **r["summary"],
+                   **({"final_ba": r["final_ba"]} if "final_ba" in r else {})}
+            for name, r in runs.items()}
+    print(f"phase 6 replay on {card}: {json.dumps(line)}; NaN frame: {msg}; "
+          f"launches {counts}", flush=True)
+    return counts, runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="K",
@@ -362,11 +584,15 @@ def main() -> int:
     if args.profile:
         summary["profile"] = phase_profile(ps, frames, MAIN_FRAMES, args.out,
                                            summary["median_step_ms_last16"])
+    del frames, ps
+    replay_counts, runs = phase_replay(card)
     for e in entries:
-        e["launches"] = counts[e["name"]]
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    print(json.dumps({"main_path": summary}))
+        e["launches"] = counts[e["name"]] + replay_counts[e["name"]]
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "slam_robot_tpu"))
+    if foreign:
+        raise AssertionError(f"the port loaded the JAX package or JAX: {foreign}")
+    print(json.dumps({"main_path": summary, "replay": runs}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from slam_robot_tpu_torch.device import default_device
 from slam_robot_tpu_torch.models import localmap as lm
 from slam_robot_tpu_torch.models import matcher as matcher_mod
 from slam_robot_tpu_torch.models import pipeline
@@ -42,7 +43,9 @@ def _leaf_to_torch(x, device) -> torch.Tensor:
 
 def from_numpy(state, device=None, kind: type | None = None):
     """Port state (``kind``: one of PipelineState, MapState, MatcherState;
-    default from the source's type name) from a JAX-package state."""
+    default from the source's type name) from a JAX-package state, on
+    ``device`` (default: the CUDA card)."""
+    device = default_device(device)
     kind = kind or _TYPES[type(state).__name__]
     out = {}
     for field in kind._fields:

@@ -1,5 +1,10 @@
 """Device, precision pins and the host-sync counter.
 
+The port's entry points run on the CUDA card unless the caller names
+another device: :func:`default_device` resolves ``device=None`` to
+``cuda`` and raises where torch sees no CUDA device, rather than carrying
+on on the CPU.
+
 The JAX package pins ``Precision.HIGHEST`` wherever a matmul touches pixel
 coordinates or geometry: reduced-precision matmul inputs quantize a pixel
 coordinate near x=640 by ~2 px (``tracker_fused.py:346-348``). The port's
@@ -13,6 +18,20 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def default_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card.
+
+    Raises ``RuntimeError`` when the CUDA card is meant (no device given, or
+    a ``cuda`` one) and torch sees no CUDA device: a CPU run asks for it
+    with ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: torch.cuda.is_available() is False. Pass "
+            "device=\"cpu\" (or --device cpu) to run on the CPU.")
+    return dev
 
 
 class SyncCounter:

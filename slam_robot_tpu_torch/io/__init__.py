@@ -1,0 +1,2 @@
+"""Host-side frame I/O: frame sources and the recorder (port of
+``slam_robot_tpu/io``'s ``sources`` and ``recorder``)."""

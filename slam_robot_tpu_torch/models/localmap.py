@@ -19,8 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slam_robot_tpu.config import SlamConfig
-from slam_robot_tpu_torch.device import span
+from slam_robot_tpu_torch.config import SlamConfig
+from slam_robot_tpu_torch.device import default_device, span
 from slam_robot_tpu_torch.ops import epipolar as epi
 from slam_robot_tpu_torch.ops import projection as proj
 from slam_robot_tpu_torch.ops import quaternion as quat
@@ -140,9 +140,10 @@ class MapState(NamedTuple):
 
 
 def empty(cfg: SlamConfig, device=None) -> MapState:
+    """An empty map on ``device`` (default: the CUDA card)."""
     C, F, P, O, R = (cfg.num_cameras, cfg.max_frames, cfg.max_points,
                      cfg.max_obs, cfg.max_obs_per_point)
-    z = dict(device=device)
+    z = dict(device=default_device(device))
     return MapState(
         cam_k=torch.zeros((C, 7), dtype=F32, **z),
         cam_k_init=torch.zeros((C, 7), dtype=F32, **z),

@@ -19,8 +19,8 @@ from typing import NamedTuple
 
 import torch
 
-from slam_robot_tpu.config import SlamConfig
-from slam_robot_tpu_torch.device import host, span
+from slam_robot_tpu_torch.config import SlamConfig
+from slam_robot_tpu_torch.device import default_device, host, span
 from slam_robot_tpu_torch.models import localmap as lm
 from slam_robot_tpu_torch.ops import corners as corner_ops
 from slam_robot_tpu_torch.ops import patch as patch_ops
@@ -68,11 +68,12 @@ class MatcherState(NamedTuple):
 
 
 def init(cfg: SlamConfig, device=None) -> MatcherState:
+    """An empty matcher on ``device`` (default: the CUDA card)."""
     V, NF, L = cfg.max_views, cfg.max_features, cfg.pyramid_depth
     S = cfg.patch_size
     h0, w0 = cfg.image_height, cfg.image_width
     WIN = tracker_fused.WIN
-    z = dict(device=device)
+    z = dict(device=default_device(device))
     return MatcherState(
         view_frame=torch.full((V,), -1, dtype=torch.int32, **z),
         view_pyr=torch.zeros((V, L, h0 + 2 * PAD, w0 + 2 * PAD), dtype=torch.float32, **z),

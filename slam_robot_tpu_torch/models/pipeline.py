@@ -9,8 +9,12 @@ epipolar constraint; reproject -> normalize -> reproject with the
 invariance canary.
 
 The JAX package's ``lax.cond``s become Python ``if``s on host reads, whose
-count per frame ``device.SYNCS`` records. The live/ring/checked step
-variants are not ported.
+count per frame ``device.SYNCS`` records.
+
+The live-loop variants (``step_donated``, ``step_live``, ``step_live_ring``)
+and ``checked_step`` are ported too (``pipeline.py:352-433`` of the JAX
+package). Their packed telemetry is built on the device and adds no host
+read.
 """
 
 from __future__ import annotations
@@ -19,13 +23,13 @@ from typing import NamedTuple
 
 import torch
 
-from slam_robot_tpu.config import SlamConfig
-from slam_robot_tpu_torch.device import host, span
+from slam_robot_tpu_torch.config import SlamConfig
+from slam_robot_tpu_torch.device import default_device, host, span
 from slam_robot_tpu_torch.models import localmap as lm
 from slam_robot_tpu_torch.models import matcher as matcher_mod
 from slam_robot_tpu_torch.models import slam
 from slam_robot_tpu_torch.ops import ba
-from slam_robot_tpu_torch.utils import synthetic
+from slam_robot_tpu_torch.utils import numerics, synthetic
 
 I32 = torch.int32
 F32 = torch.float32
@@ -40,8 +44,10 @@ class PipelineState(NamedTuple):
 
 
 def init(cfg: SlamConfig, intrinsics=None, device=None) -> PipelineState:
-    """Two cameras with the reference's intrinsics by default."""
+    """Two cameras with the reference's intrinsics by default, on
+    ``device`` (default: the CUDA card, see ``device.default_device``)."""
     matcher_mod.check_supported(cfg)
+    device = default_device(device)
     m = lm.empty(cfg, device)
     if intrinsics is None:
         intrinsics = [synthetic.reference_intrinsics(cfg)] * cfg.num_cameras
@@ -229,3 +235,62 @@ def maybe_polish(ps: PipelineState, frame_idx: int, cfg: SlamConfig,
     if run_slam and cfg.polish2_at and frame_idx == cfg.polish2_at:
         ps, _ = polish(ps, cfg, ns=cfg.polish2_at - 1)
     return ps
+
+
+def step_donated(ps: PipelineState, img: torch.Tensor, cfg: SlamConfig,
+                 run_slam: bool = True):
+    """:func:`step` under the name of the JAX package's donating variant.
+
+    JAX donates the state's buffers to the jitted step so that XLA updates
+    them in place; PyTorch has no buffer donation, and ``step`` already
+    leaves its input state untouched. Kept for callers written against the
+    JAX package's live loop."""
+    return step(ps, img, cfg, run_slam)
+
+
+# packed live-telemetry layout (one f32 row per frame): loop scalars, then
+# the safety counters (obs-window truncation guards and the normalize
+# canary the reference CHECKs every frame, main.cpp:602-605). Consumers
+# index rows by name via LIVE_IDX.
+LIVE_SCALARS = (
+    "n_matches", "is_keyframe", "mean_reproj_err", "slow_ok",
+    "n_points", "n_added", "fast_iters", "slow_iters",
+    "fast_obs_dropped", "slow_obs_dropped", "reproject_obs_dropped",
+    "normalize_canary_px",
+)
+LIVE_IDX = {k: i for i, k in enumerate(LIVE_SCALARS)}
+LIVE_WIDTH = len(LIVE_SCALARS)
+
+
+def step_live(ps: PipelineState, img: torch.Tensor, cfg: SlamConfig,
+              run_slam: bool = True):
+    """:func:`step` returning the state and one packed f32[LIVE_WIDTH] of
+    :data:`LIVE_SCALARS`, stacked on the device (no host read)."""
+    ps, met = step(ps, img, cfg, run_slam)
+    packed = torch.stack([met[k].to(F32) for k in LIVE_SCALARS])
+    return ps, packed
+
+
+def step_live_ring(ps: PipelineState, ring: torch.Tensor, img: torch.Tensor,
+                   cfg: SlamConfig, run_slam: bool = True):
+    """:func:`step_live` with device-side telemetry batching: ``ring`` is a
+    caller-carried f32[k, LIVE_WIDTH] of the last k frames' packed scalars;
+    the returned ring drops its oldest row and ends with this frame's. A
+    loop reads it on the host once every k frames."""
+    ps, packed = step_live(ps, img, cfg, run_slam)
+    return ps, torch.cat([ring[1:], packed[None]], dim=0)
+
+
+def checked_step(ps: PipelineState, img: torch.Tensor, cfg: SlamConfig,
+                 run_slam: bool = True):
+    """:func:`step` under float guards, the counterpart of checkify's
+    ``float_checks``: a NaN produced by any operation inside the step (not
+    only in its outputs) and an integer division by zero.
+
+    Returns ``(err, (state, metrics))``; ``err.get()`` is None or a message
+    naming the first failing operation, ``err.throw()`` raises it. The
+    guard only observes, so state and metrics equal :func:`step`'s."""
+    guard = numerics.NanGuard()
+    with guard:
+        out = step(ps, img, cfg, run_slam)
+    return numerics.CheckError(guard), out

@@ -2,24 +2,28 @@
 
 Port of ``slam_robot_tpu/models/renderer.py``: point landmarks splatted as
 Gaussian sprites at their projected sub-pixel locations over a fixed
-low-frequency background. The sprites are summed with
-``index_put_(accumulate=True)``; on a CUDA device that sum is atomic, in
-no fixed order, so a frame rendered there matches one rendered on the CPU
-to ~1e-6, not bit for bit.
+low-frequency background, and the seeded landmark field ``make_world``.
+The sprites are summed with ``index_put_(accumulate=True)``; on a CUDA
+device that sum is atomic, in no fixed order, so a frame rendered there
+matches one rendered on the CPU to ~1e-6, not bit for bit.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from slam_robot_tpu_torch.device import default_device
 from slam_robot_tpu_torch.ops import projection as proj
 
 STAMP = 9  # sprite support (pixels), odd
 
 
 def _background(height: int, width: int, device=None):
+    """The fixed low-frequency background on ``device`` (default: the card)."""
+    device = default_device(device)
     y = torch.linspace(0, 2.5 * math.pi, height, device=device)[:, None]
     x = torch.linspace(0, 2.5 * math.pi, width, device=device)[None, :]
     return 0.45 + 0.08 * torch.sin(x) * torch.cos(0.7 * y)
@@ -56,3 +60,16 @@ def render(q, t, k, world_points, brightness, height: int = 480, width: int = 64
     img.index_put_((rows, cols), stamp, accumulate=True)
     img = img[pad:-pad, pad:-pad]
     return torch.clamp(_background(height, width, dev) + img, 0.0, 1.0)
+
+
+def make_world(n_points: int = 400, seed: int = 0, extent: float = 6000.0,
+               depth=(1500.0, 8000.0)):
+    """Random landmark field in front of the origin looking +z: (world [P,4]
+    f32, brightness [P] f32) numpy arrays, from the same numpy draws as the
+    JAX package's ``renderer.make_world``."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-extent, extent, size=(n_points, 2))
+    z = rng.uniform(*depth, size=(n_points, 1))
+    pts = np.concatenate([xy, z, np.ones((n_points, 1))], axis=1).astype(np.float32)
+    bright = rng.uniform(0.25, 0.6, size=n_points).astype(np.float32)
+    return pts, bright

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from slam_robot_tpu.config import SlamConfig
+from slam_robot_tpu_torch.config import SlamConfig
 from slam_robot_tpu_torch.models import localmap as lm
 from slam_robot_tpu_torch.ops import ba
 

@@ -328,6 +328,15 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
             + 1e-8 * eye4
         Cinv = torch.where(free_pc[:, None, None], inv4x4(Cp + lamI4),
                            torch.zeros((1, 4, 4), dtype=F32, device=dev))
+        # A free point's damped block that is singular in float32 (the
+        # damping lost to rounding beside large entries) gets an inverse
+        # that overflows to inf; the JAX package's whole step is then NaN
+        # (inf * 0 in the Schur products) and its LM loop rejects it. Here
+        # that step is zeroed and marked invalid, and the loop rejects it
+        # the same way without making a NaN (checked_step guards every
+        # operation).
+        valid = torch.all(torch.isfinite(Cinv))
+        Cinv = torch.where(valid, Cinv, torch.zeros_like(Cinv))
         Hff_d = Hff + lam * eye6 * torch.clamp(_trace(Hff)[:, None, None] / 6.0, min=1e-6) \
             + 1e-8 * eye6
         S66 = torch.einsum("wv,wab->wavb", eyeW, Hff_d).clone()
@@ -381,9 +390,14 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
         dp = torch.where(free_p[:, None], dp, torch.zeros_like(dp))
         upd = (free_f & (slot_of < W))[:, None]
         dsel = df[slot_of.clamp(0, W - 1).long()]
+        upd = upd & valid
         dxi = torch.where(upd, dsel[:, :3], torch.zeros_like(dsel[:, :3]))
         dt = torch.where(upd, dsel[:, 3:], torch.zeros_like(dsel[:, 3:]))
-        return dxi, dt, dk, dp, pred_red
+        dp = torch.where(valid, dp, torch.zeros_like(dp))
+        if dk is not None:
+            dk = torch.where(valid, dk, torch.zeros_like(dk))
+        pred_red = torch.where(valid, pred_red, torch.zeros_like(pred_red))
+        return dxi, dt, dk, dp, pred_red, valid
 
     def apply(fq, ft, ks, locs, dxi, dt, dk, dp):
         nq = quat.retract(fq, dxi)
@@ -405,16 +419,18 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
     while it < cfg.max_iters and not done:
         if stale:
             normal = build_normal(fq, ft, ks, locs)
-        dxi, dt, dk, dp, pred_red = solve_damped(normal, lam)
+        dxi, dt, dk, dp, pred_red, valid = solve_damped(normal, lam)
         step_inf = torch.maximum(torch.max(torch.abs(dxi)),
                                  torch.maximum(torch.max(torch.abs(dt)),
                                                torch.max(torch.abs(dp))))
         if dk is not None:
             step_inf = torch.maximum(step_inf, torch.max(torch.abs(dk)))
-        tiny = step_inf < cfg.xtol
+        # an invalid step is the JAX package's NaN step: neither tiny nor
+        # accepted
+        tiny = (step_inf < cfg.xtol) & valid
         cq, ct, ck, cl = apply(fq, ft, ks, locs, dxi, dt, dk, dp)
         new_cost = total_cost(cq, ct, ck, cl)
-        accept = new_cost < cost
+        accept = (new_cost < cost) & valid
         fq = torch.where(accept, cq, fq)
         ft = torch.where(accept, ct, ft)
         ks = torch.where(accept, ck, ks)

@@ -183,12 +183,20 @@ def newton_level(win, pos0, org, ref, ref_valid, ref_mean, ref_sumsq, active,
     absolute level coords ``org`` [F,2]; pos0 [F,2] start (x, y); ref and
     ref_valid [F,S,S]; ref_mean, ref_sumsq, active [F] (active 1/0);
     wmask [S,S]; bounds [F,2] the level's true (width, height). All float32.
-    ``group`` > 1 (the JAX kernel's lanes-per-MXU-op layout) is not ported.
+
+    ``group`` G: the JAX kernel stacks G lanes into one MXU contraction
+    (``_sample_grouped``, newton.py:79-150), bit-identical to G = 1 under
+    sequential accumulation. This kernel has no cross-lane contraction (one
+    warp per lane, direct bilinear taps), so every G runs the same kernel,
+    and the same plain version, as G = 1. The JAX function's preconditions
+    hold: G >= 1 and F % G == 0 (there a reshape's TypeError).
     """
-    if group != 1:
-        raise NotImplementedError(
-            f"newton_level(group={group}) is not ported yet; see ROADMAP.md item "
-            "A19 (off-by-default knobs)")
+    F = win.shape[0]
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    if F % group:
+        raise TypeError(f"cannot group {F} lanes into groups of {group} "
+                        f"({F} % {group} != 0)")
     if not win.is_cuda:
         return newton_window_steps(win, pos0, org, ref, ref_valid, ref_mean,
                                    ref_sumsq, active, wmask, bounds, threshold,

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from slam_robot_tpu_torch.device import default_device
 from slam_robot_tpu_torch.models import renderer
 from slam_robot_tpu_torch.ops import quaternion as quat
 from slam_robot_tpu_torch.utils import synthetic
@@ -38,7 +39,9 @@ def make_world(seed: int = 0, n_world: int = 14000):
 
 
 def make_frames(cfg, n_frames: int, seed: int = 0, device=None) -> list[torch.Tensor]:
-    """Render the sweep's frames on ``device``. Returns a list of [H,W] f32."""
+    """Render the sweep's frames on ``device`` (default: the CUDA card).
+    Returns a list of [H,W] f32."""
+    device = default_device(device)
     k = torch.as_tensor(synthetic.reference_intrinsics(cfg), device=device)
     world_np, bright_np = make_world(seed)
     world = torch.as_tensor(world_np, device=device)

@@ -1,15 +1,59 @@
-"""Trajectory alignment and absolute trajectory error (numpy).
+"""Map dumps, trajectories and trajectory errors (numpy on the host).
 
-Counterpart of ``slam_robot_tpu/utils/dump.py``'s ``align_umeyama`` and
-``ate_aligned``, with one deliberate difference: the reflection fix. The
-JAX package's ``np.sign(det)`` is 0 for a rank-deficient covariance and
-then yields a projection instead of a rotation; here the correction is -1
-exactly when det(U) det(V) < 0 and +1 otherwise (Umeyama 1991, eq. 39).
+Counterpart of ``slam_robot_tpu/utils/dump.py``. ``dump_map`` writes the
+reference's /tmp/z gnuplot format (main.cpp:47-73): even-camera frame
+positions, a blank line, odd-camera frame positions, a blank line, then the
+slam-usable point positions (norm < 4000) as isolated pairs; its bytes equal
+the JAX package's for the same state. ``trajectory`` and ``ate`` (raw RMSE,
+no alignment) are as there.
+
+``align_umeyama`` and ``ate_aligned`` differ from the JAX package's in one
+deliberate way: the reflection fix. The JAX package's ``np.sign(det)`` is
+0 for a rank-deficient covariance and then yields a projection instead of
+a rotation; here the correction is -1 exactly when det(U) det(V) < 0 and
++1 otherwise (Umeyama 1991, eq. 39).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from slam_robot_tpu_torch.models import localmap as lm
+
+
+def dump_map(state: lm.MapState, path: str) -> None:
+    """Write ``state``'s frames and usable points to ``path``."""
+    n_frames = int(state.n_frames)
+    trans = state.frame_trans[:n_frames].cpu().numpy()
+    usable = (lm.slam_usable(state.point_flags) & state.point_mask).cpu().numpy()
+    pos = state.point_position().cpu().numpy()
+    with open(path, "w") as out:
+        for parity in (0, 1):
+            for fid in range(n_frames):
+                if (fid & 1) != parity:
+                    continue
+                p = trans[fid]
+                out.write(f"{p[0]:f}  {p[1]:f}  {p[2]:f}\n")
+            out.write("\n")
+        for i in range(int(state.n_points)):
+            if not usable[i]:
+                continue
+            if np.linalg.norm(pos[i]) > 4000:
+                continue
+            out.write(f"{pos[i,0]:f} {pos[i,1]:f} {pos[i,2]:f}\n\n")
+
+
+def trajectory(state: lm.MapState) -> np.ndarray:
+    """[N,3] frame positions (for ATE comparisons)."""
+    return state.frame_trans[: int(state.n_frames)].cpu().numpy()
+
+
+def ate(traj_a: np.ndarray, traj_b: np.ndarray) -> float:
+    """Absolute trajectory error: RMSE of positions, no alignment (both
+    trajectories are already anchored by Normalize)."""
+    n = min(len(traj_a), len(traj_b))
+    d = traj_a[:n] - traj_b[:n]
+    return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
 
 
 def align_umeyama(est: np.ndarray, true: np.ndarray, with_scale: bool = True):

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from slam_robot_tpu.config import SlamConfig
+from slam_robot_tpu_torch.config import SlamConfig
 
 
 def reference_intrinsics(cfg: SlamConfig) -> np.ndarray:

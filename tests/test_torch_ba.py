@@ -90,6 +90,34 @@ def test_inv4x4_matches():
     np.testing.assert_allclose(got @ m, np.broadcast_to(np.eye(4), m.shape), atol=1e-3)
 
 
+def test_overflowing_point_inverse_is_rejected_without_a_nan(monkeypatch):
+    """A free point's damped 4x4 block whose float32 inverse overflows to
+    inf (forced here for every point). The JAX package's step is then NaN
+    (inf * 0 in the Schur products) and its LM loop rejects it until the
+    stall exit; the port zeroes that step and rejects it the same way,
+    without making a NaN that checked_step's guard would flag. Both end
+    at the same iteration and code, with the state and cost unchanged."""
+    from slam_robot_tpu_torch.utils import numerics
+
+    j_inv, t_inv = j_ba.inv4x4, t_ba.inv4x4
+    monkeypatch.setattr(j_ba, "inv4x4", lambda m: j_inv(m) + np.inf)
+    monkeypatch.setattr(t_ba, "inv4x4", lambda m: t_inv(m) + float("inf"))
+    # a ba_ftol of its own: the jitted JAX solve traces anew with the patch
+    cfg = dataclasses.replace(CFG, ba_ftol=1.25e-6)
+    js, ts = problem(seed=4)
+    jn, jr = j_slam.solve_frames(js, 2, 5, 2.0, cfg, max_iters=8)
+    guard = numerics.NanGuard()
+    with guard:
+        tn, tr = t_slam.solve_frames(ts, 2, 5, 2.0, cfg, max_iters=8)
+    assert numerics.CheckError(guard).get() is None
+    assert int(tr.term) == int(jr.term) == t_ba.TERM_STALL
+    assert int(tr.iters) == int(jr.iters) == 5
+    assert float(tr.cost) == float(tr.cost0)
+    np.testing.assert_allclose(float(tr.cost), float(jr.cost), rtol=1e-5)
+    np.testing.assert_array_equal(tn.point_loc.numpy(), ts.point_loc.numpy())
+    np.testing.assert_array_equal(np.asarray(jn.point_loc), np.asarray(js.point_loc))
+
+
 def test_unsolvable_window_is_not_run():
     js, ts = problem(seed=9)
     # present only one frame: fewer than two usable frames aborts the solve

@@ -96,6 +96,30 @@ def test_newton_kernel_matches_plain_on_card(cuda_device, wh, ww):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [2, 4])
+def test_newton_group_is_group_one_on_card(cuda_device, group):
+    """group G runs the same kernel as G = 1: bit-identical results."""
+    case = make_newton_case(3, 32, 32)
+    args = [torch.as_tensor(case[k][:36] if k != "wmask" else case[k], device=cuda_device)
+            for k in ORDER]
+    one_pos, one_st = t_newton.newton_level(*args, threshold=1e-3, max_iters=6)
+    g_pos, g_st = t_newton.newton_level(*args, threshold=1e-3, max_iters=6, group=group)
+    assert torch.equal(g_pos, one_pos) and torch.equal(g_st, one_st)
+
+
+@pytest.mark.cuda
+def test_pipeline_init_defaults_to_the_card(cuda_device):
+    from slam_robot_tpu_torch import SlamConfig
+    from slam_robot_tpu_torch.models import pipeline
+
+    cfg = SlamConfig(image_width=160, image_height=120, pyramid_depth=4,
+                     max_features=64, max_points=128, max_obs=1024)
+    ps = pipeline.init(cfg)
+    for t in list(ps.map) + list(ps.matcher):
+        assert t.device.type == "cuda"
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     """Wrong dtype, shape or device raises instead of launching."""
     x = torch.zeros((16, 16), device=cuda_device, dtype=torch.float64)

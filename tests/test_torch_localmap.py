@@ -17,10 +17,12 @@ from slam_robot_tpu.models import localmap as j_lm
 from slam_robot_tpu.utils import synthetic
 from slam_robot_tpu_torch import bridge
 from slam_robot_tpu_torch.models import localmap as t_lm
+from tests.test_torch_config import port_cfg
 
 torch.set_num_threads(1)
 
 CFG = SlamConfig(max_frames=16, max_points=64, max_obs=1024, max_obs_per_point=8)
+TCFG = port_cfg(CFG)
 PIXEL_SCALE = {"obs_err", "obs_px", "frame_trans", "point_uncertainty"}
 
 
@@ -64,7 +66,7 @@ def test_bridge_round_trip_is_identity():
 
 def test_empty_and_add_frame_match():
     je = j_lm.empty(CFG)
-    te = t_lm.empty(CFG)
+    te = t_lm.empty(TCFG, "cpu")
     assert_state_close(te, je)
     k = synthetic.reference_intrinsics(CFG)
     je = j_lm.set_camera(je, 1, k)
@@ -129,14 +131,14 @@ def test_reproject_clean_epipolar_match():
 
     assert bool(t_lm.clamp_pending(tr)) == bool(j_lm.clamp_pending(jr))
     jc, jok = j_lm.clean(jr, 5.0, CFG)
-    tc, tok = t_lm.clean(tr, 5.0, CFG)
+    tc, tok = t_lm.clean(tr, 5.0, TCFG)
     assert bool(tok) == bool(jok) is False
     assert_state_close(tc, jc)
 
     assert (np.asarray(jc.point_flags) & j_lm.MISMATCHED).any()
 
     je = j_lm.apply_epipolar_constraint(jr, CFG)
-    te = t_lm.apply_epipolar_constraint(tr, CFG)
+    te = t_lm.apply_epipolar_constraint(tr, TCFG)
     assert_state_close(te, je)
     assert np.asarray(je.obs_disabled).sum() > np.asarray(jr.obs_disabled).sum()
     assert t_lm.stats(te)["n_points"] == j_lm.stats(je)["n_points"]
@@ -188,6 +190,10 @@ def test_unported_knobs_raise():
                {"drop_idle_frames": True}, {"clean_duplicates": True},
                {"adaptive_fwd_px": 2.0}, {"seed_depth_adaptive": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipeline.init(dataclasses.replace(CFG, **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        newton.newton_level(*[None] * 10, group=4)
+            pipeline.init(dataclasses.replace(TCFG, **kw), device="cpu")
+    # newton_level's group is ported; the JAX function's preconditions stay
+    win = torch.zeros((6, 32, 32))
+    with pytest.raises(ValueError, match="group"):
+        newton.newton_level(win, *[None] * 9, group=0)
+    with pytest.raises(TypeError, match="6 % 4"):
+        newton.newton_level(win, *[None] * 9, group=4)

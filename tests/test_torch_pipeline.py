@@ -39,10 +39,12 @@ from slam_robot_tpu_torch.device import SYNCS
 from slam_robot_tpu_torch.models import pipeline as t_pipe
 from slam_robot_tpu_torch.ops.cuda import blur as t_blur
 from tests.test_pipeline import CFG, scaled_intrinsics
+from tests.test_torch_config import port_cfg
 from tests.test_torch_localmap import assert_state_close
 
 torch.set_num_threads(1)
 
+TCFG = port_cfg(CFG)
 N_FRAMES = 12
 KEYFRAME = 9   # the sequence's first keyframe after frame 0
 SLOW = 10      # a slow-window (10,20) frame (10 % slow_every == 0)
@@ -88,7 +90,7 @@ def test_tracking_step_matches(jax_run, frame):
     img = frames[frame]
     want_ps, want_m = j_pipe.step(states[frame], jnp.asarray(img), CFG, run_slam=False)
     got_ps, got_m = t_pipe.step(bridge.from_numpy(states[frame], "cpu"),
-                                torch.as_tensor(np.array(img)), CFG, run_slam=False)
+                                torch.as_tensor(np.array(img)), TCFG, run_slam=False)
     assert bool(got_m["is_keyframe"]) == (frame == KEYFRAME)
     compare_metrics(got_m, want_m)
     assert_state_close(got_ps, want_ps, atol=1e-4, atol_px=1e-4)
@@ -103,8 +105,8 @@ def test_first_keyframe_with_compacted_refresh_matches(jax_run):
     img = jax_run[0][0]
     want_ps, want_m = j_pipe.step(j_pipe.init(cfg, scaled_intrinsics(cfg)),
                                   jnp.asarray(img), cfg, run_slam=False)
-    got_ps, got_m = t_pipe.step(t_pipe.init(cfg, scaled_intrinsics(cfg)),
-                                torch.as_tensor(np.array(img)), cfg, run_slam=False)
+    got_ps, got_m = t_pipe.step(t_pipe.init(port_cfg(cfg), scaled_intrinsics(cfg), "cpu"),
+                                torch.as_tensor(np.array(img)), port_cfg(cfg), run_slam=False)
     assert bool(got_m["is_keyframe"]) and int(got_m["n_added"]) > 5
     compare_metrics(got_m, want_m)
     assert_state_close(got_ps, want_ps, atol=1e-4, atol_px=1e-4)
@@ -132,7 +134,7 @@ def check_full_step(got_ps, got_m, want_ps, want_m):
 def test_full_step_matches(jax_run, frame):
     frames, states, mets = jax_run
     got_ps, got_m = t_pipe.step(bridge.from_numpy(states[frame], "cpu"),
-                                torch.as_tensor(np.array(frames[frame])), CFG)
+                                torch.as_tensor(np.array(frames[frame])), TCFG)
     check_full_step(got_ps, got_m, states[frame + 1], mets[frame])
 
 
@@ -147,7 +149,7 @@ def test_reference_exact_config_matches(jax_run):
         ps_next, m = j_pipe.step(ps, jnp.asarray(frames[i]), cfg)
         if i in (SLOW - 3, SLOW):
             got_ps, got_m = t_pipe.step(bridge.from_numpy(ps, "cpu"),
-                                        torch.as_tensor(np.array(frames[i])), cfg)
+                                        torch.as_tensor(np.array(frames[i])), port_cfg(cfg))
             check_full_step(got_ps, got_m, ps_next, m)
         ps = ps_next
 
@@ -161,7 +163,7 @@ def test_polish_matches(jax_run):
     _, states, _ = jax_run
     ns = N_FRAMES - 2
     want_ps, want_res = j_pipe.polish(states[N_FRAMES], CFG, ns=ns)
-    got_ps, got_res = t_pipe.polish(bridge.from_numpy(states[N_FRAMES], "cpu"), CFG, ns=ns)
+    got_ps, got_res = t_pipe.polish(bridge.from_numpy(states[N_FRAMES], "cpu"), TCFG, ns=ns)
     assert bool(got_res.ok) and bool(want_res.ok)
     np.testing.assert_allclose(float(got_res.cost0), float(want_res.cost0), rtol=1e-4)
     np.testing.assert_allclose(float(got_res.cost), float(want_res.cost), rtol=1e-3)
@@ -178,13 +180,13 @@ def test_closed_loop_runs_and_converges():
     """The bars of tests/test_pipeline.test_full_loop_runs_and_converges,
     through the port alone."""
     src = sources.SyntheticSource(CFG, n_frames=10, n_points=400, step_mm=10.0)
-    ps = t_pipe.init(CFG, scaled_intrinsics(CFG))
+    ps = t_pipe.init(TCFG, scaled_intrinsics(CFG), "cpu")
     hist = []
     launches = t_blur.KERNEL.launches
     syncs = SYNCS.n
     for i in range(10):
-        ps, m = t_pipe.step(ps, torch.as_tensor(np.array(src.get(i % 2, i))), CFG)
-        ps = t_pipe.maybe_polish(ps, i, CFG)
+        ps, m = t_pipe.step(ps, torch.as_tensor(np.array(src.get(i % 2, i))), TCFG)
+        ps = t_pipe.maybe_polish(ps, i, TCFG)
         hist.append({k: v.item() for k, v in m.items() if v.dim() == 0})
     assert hist[0]["is_keyframe"] and hist[0]["n_added"] > 5
     assert all(h["n_matches"] > 5 for h in hist[1:])
@@ -222,7 +224,8 @@ def test_port_imports_no_jax():
         "import slam_robot_tpu_torch, slam_robot_tpu_torch.bridge\n"
         "import slam_robot_tpu_torch.models.pipeline, slam_robot_tpu_torch.utils.benchscene\n"
         "import slam_robot_tpu_torch.utils.dump, slam_robot_tpu_torch.ops.cuda.build\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'slam_robot_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
