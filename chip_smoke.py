@@ -30,9 +30,22 @@ Phases, one line each:
      --synthetic 16, --synthetic 4 --debug-numerics, and checked_step on a
      frame with a NaN block; 11 blur launches per frame and Newton launches
      on every run
+  7. the probes: each module of slam_robot_tpu_torch.tools (the ports of
+     the JAX package's tools/probe_*.py Mosaic probes) runs its main with
+     --device cuda in-process, and all 32 cases must pass, each kernel
+     against its plain version and the original's expected values; the
+     kernels whose original inputs are constant (the batched product, the
+     masked copy, every loop and branch) pass again on seeded non-uniform
+     inputs (the modules' SEEDED cases); then every case is timed (kernel, plain version, the one-call PyTorch
+     equivalent where there is one) beside its bound; the fused two-level
+     pyramid against B2's three calls for the same two levels, and the
+     Newton skeleton against B1 on the skeleton's inputs, each also by
+     device time (CUDA-graph replay, no host launch path)
 
-The line before the last is a JSON object with one entry per kernel, its
-launches counted over phases 4 and 6; the last line is
+The JSON line before the card's line holds the main path's, the replay
+runs' and every probe case's figures. The line before the last is a JSON
+object with one entry per kernel, its launches counted over phases 4 and 6
+(B1, B2) or phase 7 (the probes' entry points); the last line is
 {"ok": true, "device": {...}}. Any failure raises, and the script exits
 non-zero without printing that line.
 """
@@ -53,7 +66,7 @@ MAIN_FRAMES = 64
 REPLAY_FRAMES = 16
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores (both kernels are float32 CUDA-core
+# float32 FLOP/s outside the tensor cores (every kernel is float32 CUDA-core
 # code)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -98,6 +111,30 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int = 50) -> float:
+    """Mean device ms per call of ``fn`` with the host's launch path taken
+    out: ``reps`` calls captured in one CUDA graph, the graph replayed and
+    timed with CUDA events. ``fn`` must launch kernels only (no host read)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def phase_blur(frame):
@@ -548,6 +585,157 @@ def phase_replay(card: str):
     return counts, runs
 
 
+def _case_bytes(case, args, out) -> int:
+    """Bytes a probe case must move: its own count where it has one, else
+    every input read once and every output written once."""
+    from slam_robot_tpu_torch.tools import flat_tensors
+
+    if case.n_bytes is not None:
+        return int(case.n_bytes(*args))
+    return sum(t.numel() * t.element_size() for t in flat_tensors(args) + flat_tensors(out))
+
+
+def phase_probes():
+    """Phase 7: every probe module's main on the card, then every case timed.
+    Returns (the JSON entries of the probes' entry points, every case's
+    measurements by case name)."""
+    import collections
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    from slam_robot_tpu_torch import tools
+    from slam_robot_tpu_torch.ops.cuda import blur as bk
+
+    t0 = time.time()
+    modules = [importlib.import_module(f"slam_robot_tpu_torch.tools.{name}")
+               for name in tools.PROBES]
+    cases = [c for m in modules for c in m.CASES]
+    kernels = {c.kernel.name: c.kernel for c in cases}
+    for k in kernels.values():
+        k.launches = 0
+    n_pass = 0
+    for m in modules:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = m.main(["--device", "cuda"])
+        lines = out.getvalue().strip().splitlines()
+        passed = [ln for ln in lines if ln.startswith("PASS ")]
+        if rc != 0 or len(passed) != len(m.CASES) or len(lines) != len(m.CASES):
+            raise AssertionError(f"{m.__name__} exited {rc}:\n" + "\n".join(lines))
+        n_pass += len(passed)
+    launches = {name: k.launches for name, k in kernels.items()}
+    # each case's wrapper launches its entry point once
+    want = dict(collections.Counter(c.kernel.name for c in cases))
+    if launches != want:
+        raise AssertionError(f"probe launches {launches}, expected one per case {want}")
+    if n_pass != 32:
+        raise AssertionError(f"{n_pass} probe cases passed, expected 32")
+    check_s = time.time() - t0
+
+    dev = torch.device("cuda")
+    # the kernels whose original inputs are constant, again on seeded
+    # non-uniform ones (their launches are comparisons, not counted)
+    seeded = tools.all_cases("SEEDED")
+    for c in seeded:
+        ok, detail = tools.check(c, dev)
+        print(f"phase 7 {c.name}: {'PASS' if ok else 'FAIL'}, {detail}", flush=True)
+        if not ok:
+            raise AssertionError(f"probe case {c.name} failed on seeded inputs: {detail}")
+    rows = {}
+    for c in cases:
+        args = c.inputs(dev)
+        got, plain = c.run(*args), c.plain(*args)
+        torch.cuda.synchronize()
+        err = tools.max_abs_err(got, plain)
+        ms = _time_ms(lambda: c.run(*args), 200)
+        plain_ms = _time_ms(lambda: c.plain(*args), 20)
+        lib_ms = _time_ms(c.library(*args), 200) if c.library is not None else None
+        n_bytes = _case_bytes(c, args, got)
+        n_flops = int(c.flops(*args)) if c.flops is not None else 0
+        bound_ms, bound_by = _bound(n_bytes, n_flops)
+        rows[c.name] = {"kernel": c.kernel.name, "replaces": c.replaces, "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+                        "flops": n_flops}
+        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"phase 7 {c.name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+              f"{bound_ms:.6f} ms by {bound_by} ({n_bytes} B, {n_flops} flop), "
+              f"max_abs_err {err:.3g}", flush=True)
+
+    # the fused two-level pyramid against B2's three calls for the same two
+    # levels (the probe's own comparison), in turns
+    from slam_robot_tpu_torch.ops.cuda import probe_pyramid as pp
+    from slam_robot_tpu_torch.tools.probe_pyramid_fused import frame
+
+    img, k = frame(dev), pp.taps().to(dev)
+    g0, g1 = bk.gaussian_weights(pp.SIGMA0), bk.gaussian_weights(pp.SIGMA_DOWN)
+
+    def three_calls():
+        return bk.sep5(bk.sep5(bk.sep5(img, g0, 1), bk.PYRDOWN_WEIGHTS, 2), g1, 1)
+
+    b2 = [_time_ms(three_calls, 200), _time_ms(lambda: pp.two_level(img, k), 200)]
+    b2 += [_time_ms(lambda: pp.two_level(img, k), 200), _time_ms(three_calls, 200)]
+    rows["probe2"]["b2_three_calls_ms"] = min(b2[0], b2[3])
+    print(f"phase 7 probe2 against B2's three calls (in turns B2, fused, fused, B2): "
+          f"{b2[0]:.4f} / {b2[1]:.4f} / {b2[2]:.4f} / {b2[3]:.4f} ms", flush=True)
+
+    # the Newton skeleton against B1 on the skeleton's inputs (256 lanes, 6
+    # iterations at most; B1's patch is centred on the position, its bounds
+    # are far away), then both pairs with the host's launch path taken out
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+    from slam_robot_tpu_torch.ops.cuda import probe_newton as pn
+    from slam_robot_tpu_torch.tools import probe_newton_kernel as t14
+
+    win, pos, ref, wmask = t14.inputs(dev)
+    f, n = win.shape[0], ref.shape[1] * ref.shape[2]
+    b1_args = (win, pos, torch.zeros_like(pos), ref, torch.ones_like(ref),
+               ref.sum((1, 2)) / n, (ref * ref).sum((1, 2)) / n, torch.ones((f,), device=dev),
+               wmask, torch.full((f, 2), 1e4, device=dev))
+    lane_iters = _newton_lane_iters(b1_args, 1e-3, t14.IT)
+
+    def b1():
+        return nk.newton_level(*b1_args, threshold=1e-3, max_iters=t14.IT)
+
+    def skeleton():
+        return pn.probe_newton(win, pos, ref, wmask, pn.NEWTON, t14.IT)
+
+    b1_ms = min(_time_ms(b1, 200), _time_ms(b1, 200))
+    graph = {"B2 three calls": three_calls, "probe2": lambda: pp.two_level(img, k),
+             "newton-skeleton": skeleton, "B1": b1}
+    dev_ms = {name: [_graph_ms(fn)] for name, fn in graph.items()}
+    for name, fn in reversed(list(graph.items())):
+        dev_ms[name].append(_graph_ms(fn))
+    dev_ms = {name: min(v) for name, v in dev_ms.items()}
+    rows["probe2"]["graph_ms"] = dev_ms["probe2"]
+    rows["probe2"]["b2_three_calls_graph_ms"] = dev_ms["B2 three calls"]
+    rows["newton-skeleton"].update(graph_ms=dev_ms["newton-skeleton"], b1_ms=b1_ms,
+                                   b1_graph_ms=dev_ms["B1"], b1_lane_iterations=lane_iters)
+    print(f"phase 7 device ms per call (a CUDA graph of 50 calls, the lesser of two "
+          f"replays): {json.dumps(dev_ms)}; B1 on the skeleton's inputs {b1_ms:.4f} ms "
+          f"by events, {lane_iters} of {f * t14.IT} lane-iterations", flush=True)
+
+    entries = []
+    for name, kern in kernels.items():
+        mine = [(case, r) for case, r in rows.items() if r["kernel"] == name]
+        first = mine[0][1]  # the entry's first case is the one timed
+        entries.append({
+            "name": name, "route": "cuda", "source": kern.source,
+            "replaces": first["replaces"],
+            "replaces_all": sorted({r["replaces"] for _, r in mine}),
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for _, r in mine),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "timed": mine[0][0], "cases": [case for case, _ in mine]})
+    print(f"phase 7 probes: {n_pass} cases passed on the card in {check_s:.2f} s, "
+          f"{len(seeded)} seeded cases passed, launches {launches}; "
+          f"phase {time.time() - t0:.2f} s", flush=True)
+    return entries, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="K",
@@ -588,11 +776,13 @@ def main() -> int:
     replay_counts, runs = phase_replay(card)
     for e in entries:
         e["launches"] = counts[e["name"]] + replay_counts[e["name"]]
+    probe_entries, probes = phase_probes()
+    entries += probe_entries
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "slam_robot_tpu"))
     if foreign:
         raise AssertionError(f"the port loaded the JAX package or JAX: {foreign}")
-    print(json.dumps({"main_path": summary, "replay": runs}))
+    print(json.dumps({"main_path": summary, "replay": runs, "probes": probes}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

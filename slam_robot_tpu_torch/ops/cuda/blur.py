@@ -57,10 +57,8 @@ def sep5(img: torch.Tensor, weights, stride: int = 1) -> torch.Tensor:
     ho, wo = (h + 1) // 2 if stride == 2 else h, (w + 1) // 2 if stride == 2 else w
     out = torch.empty((ho, wo), dtype=torch.float32, device=img.device)
     k = [float(v) for v in weights]
-    err = KERNEL.fn()(img.data_ptr(), out.data_ptr(), h, w, ho, wo, stride,
-                      *k, build.stream_handle(img.device))
-    build.check_launch(KERNEL.name, err)
-    KERNEL.launches += 1
+    KERNEL.launch(img.data_ptr(), out.data_ptr(), h, w, ho, wo, stride, *k,
+                  build.stream_handle(img.device))
     return out
 
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``slam_robot_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` file into one shared library with a
-plain C interface, written to ``build/kernels/`` at the repository root and
-named by a hash of the sources, so an edited source rebuilds and an
+``nvcc`` compiles every ``csrc/*.cu`` file to an object, all sources at
+once in parallel processes, and links the objects into one shared library
+with a plain C interface, written to ``build/kernels/`` at the repository
+root and named by a hash of the sources, so an edited source rebuilds and an
 unchanged one loads at once. The library loads with ``ctypes``; every
 entry point takes device pointers and the CUDA stream as ``c_void_p``,
 integers as ``c_int`` and floats as ``c_float``, and returns the
@@ -39,6 +40,31 @@ SIGNATURES = {
     # bounds, pos_out, status_out, F, WH, WW, threshold, max_iters, stream
     "newton_level": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _F, _I, _P],
+    # the tools' probes (ops/cuda/probe_*.py)
+    # img, pos, mask, out, H, W, F, WS, case, stream
+    "probe_windows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # img, pos, out, H, W, F, WS, case, stream
+    "probe_windows_async": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # pos, out, F, n_out, idx, scale, stream
+    "probe_fill": [_P, _P, _I, _I, _I, _I, _P],
+    # x, out, R, C, case, stream
+    "probe_control": [_P, _P, _I, _I, _I, _P],
+    # a, b, out, F, M, K, N, stream
+    "probe_bmm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # win, xy, out, WS, S, stream
+    "probe_band_grad": [_P, _P, _P, _I, _I, _P],
+    # in, out, B, G, R, W, case, stream
+    "probe_layout": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # frac, start, out, B, G, S, L, stream
+    "probe_banded_pair": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # win, fx, fy, x0, y0, out, F, WH, WW, S, stream
+    "probe_sample_grouped": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # win, pos, ref, wmask, out, F, WH, WW, stage, iters, stream
+    "probe_newton": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # in, out, H, W, stream
+    "probe_decimate": [_P, _P, _I, _I, _P],
+    # in, taps, l0, l1, H, W, stream
+    "probe_two_level": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 
@@ -56,6 +82,11 @@ class Kernel:
 
     def fn(self):
         return load_library()[self.name]
+
+    def launch(self, *args) -> None:
+        """Call the C entry point, raise if the launch failed, count it."""
+        check_launch(self.name, self.fn()(*args))
+        self.launches += 1
 
 
 def _nvcc() -> str:
@@ -75,11 +106,23 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha1()
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):  # headers rebuild too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
     return BUILD_DIR / f"libslam_kernels_{h.hexdigest()[:12]}.so"
+
+
+def _run(cmds: list[list[str]], verbose: bool) -> None:
+    """Run the commands side by side; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, text in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{text}")
+        if verbose and text:
+            print(text)
 
 
 def build(verbose: bool = False) -> Path:
@@ -88,19 +131,19 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-lineinfo", "-o", str(tmp),
-           *[str(s) for s in _sources()]]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
-        )
-    if verbose and (res.stdout or res.stderr):
-        print(res.stdout + res.stderr)
+        nvcc.append("-Xptxas=-v")
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    try:
+        _run([[*nvcc, "-c", "-o", str(o), str(src)] for o, src in zip(objs, _sources())],
+             verbose)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _run([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]], verbose)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 
@@ -127,12 +170,13 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_cuda(t: torch.Tensor, name: str, shape: tuple | None = None) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``."""
+def check_cuda(t: torch.Tensor, name: str, shape: tuple | None = None,
+               dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and ``shape``."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -29,51 +29,27 @@ def _oob(x, y, width, height):
             | (x + _MARGIN > width) | (y + _MARGIN > height))
 
 
-def _newton_iter(pos, status, done, win_flat, WW, org, ref, w_rv, r_mean,
-                 r_sumsq, width, height, threshold: float, S: int, WH: int):
-    """One Newton step for all lanes; done lanes pass through unchanged."""
-    F = pos.shape[0]
-    half = (S - 1) // 2
-    eps = 1e-12
-    x, y = pos[:, 0], pos[:, 1]
-    oob = _oob(x, y, width, height)
-
-    lx = x - org[:, 0]
-    ly = y - org[:, 1]
-    x0f = torch.floor(lx)
-    y0f = torch.floor(ly)
-    fx = (lx - x0f)[:, None, None]
-    fy = (ly - y0f)[:, None, None]
-    x0 = x0f.to(torch.int32) - half
-    y0 = y0f.to(torch.int32) - half
-    x0c = torch.clamp(x0, 0, WW - (S + 1)).long()
-    y0c = torch.clamp(y0, 0, WH - (S + 1)).long()
-
-    ar = torch.arange(S, device=pos.device)
-    base = (y0c[:, None, None] + ar[None, :, None]) * WW \
-        + x0c[:, None, None] + ar[None, None, :]              # [F,S,S]
-    flat = base.reshape(F, S * S)
-
-    def tap(off):
-        return torch.gather(win_flat, 1, flat + off).reshape(F, S, S)
-
-    a, b, c, d = tap(0), tap(1), tap(WW), tap(WW + 1)
+def bilinear(a, b, c, d, fx, fy):
+    """A bilinear patch from its taps a (i, j), b (i, j+1), c (i+1, j), d
+    (i+1, j+1), rows first: (p2, d/dx, d/dy, d2/dxdy)."""
     t0 = (1.0 - fy) * a + fy * c
     t1 = (1.0 - fy) * b + fy * d
     s0 = c - a
     s1 = d - b
-    p2 = (1.0 - fx) * t0 + fx * t1
-    u = t1 - t0
-    v = (1.0 - fx) * s0 + fx * s1
-    puv = s1 - s0
+    return (1.0 - fx) * t0 + fx * t1, t1 - t0, (1.0 - fx) * s0 + fx * s1, s1 - s0
 
-    gx = (x0 + org[:, 0].to(torch.int32))[:, None] + ar[None, :]
-    gy = (y0 + org[:, 1].to(torch.int32))[:, None] + ar[None, :]
-    vx = (gx >= 0) & (gx.to(torch.float32) + 1.0 <= width[:, None])
-    vy = (gy >= 0) & (gy.to(torch.float32) + 1.0 <= height[:, None])
-    valid2 = vy[:, :, None] & vx[:, None, :]
-    w2 = torch.where(valid2, w_rv, torch.zeros_like(w_rv))
 
+def score_terms(p2, u, v, puv, ref, w, r_mean, r_sumsq, eps: float = 1e-12):
+    """The gain/bias-normalized SSD of each lane's patch and its exact
+    derivatives in the patch position (x, y): (s, gx, gy, hxx, hxy, hyy),
+    each [F].
+
+    p2 [F,S,S] is the bilinear patch, u, v its d/dx, d/dy and puv its
+    d2/dxdy (d2/dx2 = d2/dy2 = 0); alpha = sqrt(r_sumsq / max(mean(p2^2),
+    eps)), beta = r_mean - alpha * mean(p2), means over all S*S pixels;
+    s = sum(w (ref - alpha p2 - beta)^2).
+    """
+    F, S = p2.shape[0], p2.shape[1]
     n = S * S
 
     def mean2(t):
@@ -120,11 +96,48 @@ def _newton_iter(pos, status, done, win_flat, WW, org, ref, w_rv, r_mean,
     def sum2(t):
         return t.reshape(F, n).sum(1)
 
-    gx_ = 2.0 * sum2(w2 * e * ex)
-    gy_ = 2.0 * sum2(w2 * e * ey)
-    hxx = 2.0 * sum2(w2 * (ex * ex + e * exx))
-    hyy = 2.0 * sum2(w2 * (ey * ey + e * eyy))
-    hxy = 2.0 * sum2(w2 * (ex * ey + e * exy))
+    return (sum2(w * e * e), 2.0 * sum2(w * e * ex), 2.0 * sum2(w * e * ey),
+            2.0 * sum2(w * (ex * ex + e * exx)), 2.0 * sum2(w * (ex * ey + e * exy)),
+            2.0 * sum2(w * (ey * ey + e * eyy)))
+
+
+def _newton_iter(pos, status, done, win_flat, WW, org, ref, w_rv, r_mean,
+                 r_sumsq, width, height, threshold: float, S: int, WH: int):
+    """One Newton step for all lanes; done lanes pass through unchanged."""
+    F = pos.shape[0]
+    half = (S - 1) // 2
+    x, y = pos[:, 0], pos[:, 1]
+    oob = _oob(x, y, width, height)
+
+    lx = x - org[:, 0]
+    ly = y - org[:, 1]
+    x0f = torch.floor(lx)
+    y0f = torch.floor(ly)
+    fx = (lx - x0f)[:, None, None]
+    fy = (ly - y0f)[:, None, None]
+    x0 = x0f.to(torch.int32) - half
+    y0 = y0f.to(torch.int32) - half
+    x0c = torch.clamp(x0, 0, WW - (S + 1)).long()
+    y0c = torch.clamp(y0, 0, WH - (S + 1)).long()
+
+    ar = torch.arange(S, device=pos.device)
+    base = (y0c[:, None, None] + ar[None, :, None]) * WW \
+        + x0c[:, None, None] + ar[None, None, :]              # [F,S,S]
+    flat = base.reshape(F, S * S)
+
+    def tap(off):
+        return torch.gather(win_flat, 1, flat + off).reshape(F, S, S)
+
+    p2, u, v, puv = bilinear(tap(0), tap(1), tap(WW), tap(WW + 1), fx, fy)
+
+    gx = (x0 + org[:, 0].to(torch.int32))[:, None] + ar[None, :]
+    gy = (y0 + org[:, 1].to(torch.int32))[:, None] + ar[None, :]
+    vx = (gx >= 0) & (gx.to(torch.float32) + 1.0 <= width[:, None])
+    vy = (gy >= 0) & (gy.to(torch.float32) + 1.0 <= height[:, None])
+    valid2 = vy[:, :, None] & vx[:, None, :]
+    w2 = torch.where(valid2, w_rv, torch.zeros_like(w_rv))
+
+    _, gx_, gy_, hxx, hxy, hyy = score_terms(p2, u, v, puv, ref, w2, r_mean, r_sumsq)
 
     det = hxx * hyy - hxy * hxy
     tiny = torch.where(det >= 0, torch.full_like(det, 1e-20), torch.full_like(det, -1e-20))
@@ -217,13 +230,11 @@ def newton_level(win, pos0, org, ref, ref_valid, ref_mean, ref_sumsq, active,
         build.check_cuda(t, name, shape)
     pos = torch.empty((F, 2), dtype=torch.float32, device=win.device)
     status = torch.empty((F,), dtype=torch.float32, device=win.device)
-    err = KERNEL.fn()(
+    KERNEL.launch(
         win.data_ptr(), pos0.data_ptr(), org.data_ptr(), ref.data_ptr(),
         ref_valid.data_ptr(), ref_mean.data_ptr(), ref_sumsq.data_ptr(),
         active.data_ptr(), wmask.data_ptr(), bounds.data_ptr(),
         pos.data_ptr(), status.data_ptr(), F, WH, WW, float(threshold),
         int(max_iters), build.stream_handle(win.device),
     )
-    build.check_launch(KERNEL.name, err)
-    KERNEL.launches += 1
     return pos, status

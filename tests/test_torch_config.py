@@ -73,6 +73,7 @@ def test_port_modules_import_nothing_of_the_jax_package():
         "             or m.startswith('slam_robot_tpu.'))\n"
         "assert not bad, bad\n"
         "assert 'slam_robot_tpu_torch.run_replay' in names, names\n"
+        "assert 'slam_robot_tpu_torch.tools.probe_newton_kernel' in names, names\n"
         "print(len(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

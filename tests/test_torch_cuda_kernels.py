@@ -1,5 +1,5 @@
-"""The port's two hand-written CUDA kernels against their plain PyTorch
-versions on the card.
+"""The port's hand-written CUDA kernels against their plain PyTorch
+versions on the card: B1, B2 and the tools' probe kernels.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -12,16 +12,28 @@ Newton kernel's plain version (tests/test_torch_newton.py).
 Tolerances: blur atol 1e-5 (five-tap float32 sums in another order);
 Newton pos atol 2e-3 px (convergence threshold 1e-3 px: a lane whose last
 step lands near it may take one more or one fewer step when the 169-pixel
-sums are taken in another order), status equal.
+sums are taken in another order), status equal. Probes: copies, layouts
+and loops exact; the batched product rtol 1e-5; the grouped sampling exact
+(both sides round each product and sum alone); the two-level pyramid atol
+1e-5; the Newton stages atol 1e-3 (6 steps: 2e-3 px).
 """
+
+import importlib
+
 
 import numpy as np
 import pytest
 import torch
 
+from slam_robot_tpu_torch import tools
 from slam_robot_tpu_torch.ops import patch as t_patch
 from slam_robot_tpu_torch.ops.cuda import blur as t_blur
 from slam_robot_tpu_torch.ops.cuda import newton as t_newton
+from slam_robot_tpu_torch.ops.cuda import probe_banded as pb
+from slam_robot_tpu_torch.ops.cuda import probe_control as pc
+from slam_robot_tpu_torch.ops.cuda import probe_newton as pn
+from slam_robot_tpu_torch.ops.cuda import probe_pyramid as pp
+from slam_robot_tpu_torch.ops.cuda import probe_windows as pw
 
 F = 37
 
@@ -130,3 +142,88 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     args[3] = args[3][:, :12]  # ref [F,12,13]
     with pytest.raises(ValueError):
         t_newton.newton_level(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", tools.PROBES)
+def test_probe_main_passes_on_card(cuda_device, name, capsys):
+    mod = importlib.import_module(f"slam_robot_tpu_torch.tools.{name}")
+    assert mod.main(["--device", "cuda"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(mod.CASES) and all(ln.startswith("PASS ") for ln in lines), lines
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c.name for c in tools.all_cases("SEEDED")])
+def test_probe_seeded_case_on_card(cuda_device, name):
+    """The kernels whose original inputs are constant, on seeded ones."""
+    case = {c.name: c for c in tools.all_cases("SEEDED")}[name]
+    ok, detail = tools.check(case, cuda_device)
+    assert ok, detail
+
+
+@pytest.mark.cuda
+def test_probe_windows_clamp_and_control_on_random_inputs(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    img = torch.rand((40, 70), generator=gen, device=cuda_device)
+    pos = torch.tensor([[-5, 3], [60, 30], [10, 9], [0, 0]], dtype=torch.int32,
+                       device=cuda_device)
+    for case in (pw.INT, pw.ROWS, pw.DIAGONAL):
+        assert torch.equal(pw.windows(img, pos, 16, case), pw.windows_plain(img, pos, 16, case))
+    fpos = pos.to(torch.float32) + 0.7
+    assert torch.equal(pw.windows(img, fpos, 16, pw.FLOORED),
+                       pw.windows_plain(img, fpos, 16, pw.FLOORED))
+    for case in (pw.ONE_BY_ONE, pw.ALL_THEN_WAIT, pw.STAGED):
+        assert torch.equal(pw.windows_async(img, pos, 16, case),
+                           pw.windows_plain(img, pos, 16, pw.INT))
+    x = (3.0 * torch.rand((24, 40), generator=gen, device=cuda_device)).contiguous()
+    for case in (pc.ROW_DONE, pc.FIXED, pc.REDUCE, pc.ELEMENT_DONE):
+        assert torch.equal(pc.control(x, case), pc.control_plain(x, case))
+
+
+@pytest.mark.cuda
+def test_probe_banded_kernels_on_random_inputs(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    a = torch.rand((5, 13, 32), generator=gen, device=cuda_device)
+    b = torch.rand((5, 32, 24), generator=gen, device=cuda_device)
+    torch.testing.assert_close(pb.bmm(a, b), pb.bmm_plain(a, b), rtol=1e-5, atol=0)
+    f = 12
+    win = torch.rand((f, 30, 31), generator=gen, device=cuda_device)
+    fx = torch.rand((f,), generator=gen, device=cuda_device)
+    fy = torch.rand((f,), generator=gen, device=cuda_device)
+    x0 = torch.randint(-3, 20, (f,), generator=gen, device=cuda_device).to(torch.int32)
+    y0 = torch.randint(-3, 20, (f,), generator=gen, device=cuda_device).to(torch.int32)
+    assert torch.equal(pb.sample_grouped(win, fx, fy, x0, y0, 13, 4),
+                       pb.sample_grouped_plain(win, fx, fy, x0, y0, 13))
+    st = torch.randint(0, 19, (f,), generator=gen, device=cuda_device).to(torch.int32)
+    assert torch.equal(pb.banded_pair_grouped(fx, st, 32, 13, 3),
+                       pb.banded_pair_grouped_plain(fx, st, 32, 13, 3))
+    xy = torch.tensor([7.6, -0.4], device=cuda_device)
+    torch.testing.assert_close(pb.band_grad(win[0, :30, :30].contiguous(), xy, 13),
+                               pb.band_grad_plain(win[0, :30, :30], xy, 13), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", list(pn.STAGES))
+def test_probe_newton_kernel_on_smooth_windows(cuda_device, stage):
+    case = make_newton_case(5, 32, 32)
+    win = torch.as_tensor(case["win"], device=cuda_device)
+    ref = torch.as_tensor(case["ref"], device=cuda_device)
+    wmask = torch.as_tensor(case["wmask"], device=cuda_device)
+    pos = torch.full((F, 2), 15.4, device=cuda_device)
+    got = pn.probe_newton(win, pos, ref, wmask, pn.STAGES[stage])
+    want = pn.probe_newton_plain(win, pos, ref, wmask, pn.STAGES[stage])
+    atol = 2e-3 if stage == "newton" else 1e-3
+    assert float((got - want).abs().max()) <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (102, 150), (6, 8)])
+def test_probe_pyramid_kernels_on_partial_tiles(cuda_device, shape):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    img = torch.rand(shape, generator=gen, device=cuda_device)
+    assert torch.equal(pp.decimate(img), img[::2, ::2])
+    k = pp.taps().to(cuda_device)
+    for got, want in zip(pp.two_level(img, k), pp.two_level_plain(img, k)):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5
