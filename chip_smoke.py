@@ -6,30 +6,43 @@ Run from the repository root:
     python3 chip_smoke.py                         # all phases, 64 frames
     python3 chip_smoke.py --profile 8 --out DIR   # + torch.profiler tables
 
-Phases, one line each:
+Phases, one line each (phases 2 and 3 several):
   0. the card (nvidia-smi name and power limit) and the torch version;
      fails when torch sees no CUDA device
   1. build the hand-written kernels from slam_robot_tpu_torch/csrc with nvcc
-  2. the blur kernel (B2) against its plain PyTorch version on every level
-     shape of a 480x640 pyramid plus an odd shape, atol 1e-5, with times,
-     the time of the one-call PyTorch equivalent (reflect pad + conv2d) and
-     the bound
-  3. the Newton level kernel (B1) against its plain version for F=32 and
-     F=256 lanes, windows cut from a rendered bench frame's pyramid with
-     perturbed starts, every level (the coarsest window is 31x32), with times
-     and the bound; group=4 equals group=1 bit for bit
+  2. B2: sep5 (the blur kernel behind pyramid.blur/pyr_down) against its
+     plain PyTorch version on every level shape of a 480x640 pyramid plus
+     an odd shape, atol 1e-5, with times, the one-call PyTorch equivalent
+     (reflect pad + conv2d) and the bound; then pyramid_flat (the whole
+     flat pyramid in two launches) against the plain pyramid at 480x640,
+     47x63 and 120x158 (a padded row of 696 B), atol 1e-5 on every element,
+     the padding and the zero region included, its largest difference from
+     the 11-launch route it replaced, and both timed in turns (route, new,
+     new, route) by CUDA events and by CUDA-graph replay, with each launch's
+     device time and the bound
+  3. B1: newton_level (one level of the track kernel) against its plain
+     version for F=32 and F=256 lanes, windows cut from a rendered bench
+     frame's pyramid with perturbed starts, every level (the coarsest window
+     is 31x32), with times and the bound, group=4 equal to group=1 bit for
+     bit; then newton_track (a whole tracking direction in one launch)
+     against the plain level loop at F=32 and F=256 on the frame pair: the
+     forward pass on the pyramid with the backward stack its epilogue
+     samples and every level's window cut where the plain loop cuts it, the
+     backward pass on the window cache; each direction timed in turns with
+     the level loop through newton_level, by events and by graph replay,
+     beside its bound
   4. the main path: pipeline.init(SlamConfig()), then the bench sweep's
-     first 64 frames rendered by the port, with maybe_polish; launch counters,
-     NaN/Inf, map size, dropped rows, the normalize canary and the
-     Sim(3)-aligned trajectory error against the sweep's ground truth
+     first 64 frames rendered by the port, with maybe_polish; launch counters
+     (two pyramid_flat launches a frame, two newton_track launches a sweep,
+     no sep5 launch), NaN/Inf, map size, dropped rows, the normalize canary
+     and the Sim(3)-aligned trajectory error against the sweep's ground truth
   5. with --profile K: torch.profiler over frames 64..63+K (device busy
      time, launches, host time by span); tables written to --out
   6. the replay driver (run_replay.main, in-process) at 640x480 with the
      default SlamConfig: 16 SyntheticSource frames recorded as .npy, replayed
      with --final-ba --dump, replayed again with --live (same summary),
      --synthetic 16, --synthetic 4 --debug-numerics, and checked_step on a
-     frame with a NaN block; 11 blur launches per frame and Newton launches
-     on every run
+     frame with a NaN block; the launch gates of phase 4 on every run
   7. the probes: each module of slam_robot_tpu_torch.tools (the ports of
      the JAX package's tools/probe_*.py Mosaic probes) runs its main with
      --device cuda in-process, and all 32 cases must pass, each kernel
@@ -40,12 +53,15 @@ Phases, one line each:
      equivalent where there is one) beside its bound; the fused two-level
      pyramid against B2's three calls for the same two levels, and the
      Newton skeleton against B1 on the skeleton's inputs, each also by
-     device time (CUDA-graph replay, no host launch path)
+     device time (CUDA-graph replay, no host launch path), and the two
+     device-time ratios
 
 The JSON line before the card's line holds the main path's, the replay
 runs' and every probe case's figures. The line before the last is a JSON
-object with one entry per kernel, its launches counted over phases 4 and 6
-(B1, B2) or phase 7 (the probes' entry points); the last line is
+object with one entry per kernel entry point, its launches counted over
+phases 4 and 6 (pyramid_flat, newton_track: the main path), phase 7's
+mains (sep5_reflect101: probe2's reference runs pyramid.blur and
+pyr_down) or phase 7 (the probes' entry points); the last line is
 {"ok": true, "device": {...}}. Any failure raises, and the script exits
 non-zero without printing that line.
 """
@@ -137,8 +153,29 @@ def _graph_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / (5 * reps)
 
 
+def _kernel_us(fn, names, reps: int = 20) -> dict:
+    """Mean device us per call of each kernel whose name holds one of
+    ``names``, from torch.profiler over ``reps`` calls of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+                out[name] = t / reps
+    return out
+
+
 def phase_blur(frame):
-    """B2 kernel vs plain on the pyramid's shapes; returns the JSON entry."""
+    """B2's sep5 vs plain on the pyramid's shapes; returns the JSON entry."""
     import torch
 
     from slam_robot_tpu_torch.ops.cuda import blur as bk
@@ -228,6 +265,80 @@ def phase_blur(frame):
             "timed": "the 11 build_pyramid calls at 480x640, per frame"}
 
 
+def _in_turns(route, new, timer) -> tuple[list[float], list[float]]:
+    """``timer`` of the pre-PR route and of the new kernel in turns (route,
+    new, new, route): (route's two readings, new's two)."""
+    r1, n1, n2, r2 = timer(route), timer(new), timer(new), timer(route)
+    return [r1, r2], [n1, n2]
+
+
+def phase_pyramid(frame):
+    """B2's pyramid_flat against the plain flat pyramid on three shapes, and
+    timed in turns with the 11-launch route it replaced; returns the JSON
+    entry."""
+    import torch
+
+    from slam_robot_tpu_torch.ops import pyramid
+    from slam_robot_tpu_torch.ops.cuda import blur as bk
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    grey = pyramid.to_grey(frame).contiguous()
+    h0, w0 = grey.shape
+    # 158 wide: a padded row of 174 floats (696 B), not a multiple of 16 B
+    shapes = {"480x640": grey, "47x63": torch.rand((47, 63), generator=gen, device="cuda"),
+              "120x158": torch.rand((120, 158), generator=gen, device="cuda")}
+    max_err, route_err = 0.0, {}
+    for name, g in shapes.items():
+        got = bk.pyramid_flat(g, 6)
+        want = bk.pyramid_flat_plain(g, 6)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape, (got.shape, want.shape)
+        max_err = max(max_err, float((got - want).abs().max()))
+        if not torch.equal(got[want == 0], want[want == 0]):
+            raise AssertionError(f"pyramid_flat {name}: the zero region is not zero")
+        if min(bk.level_dims(*g.shape, 6)[-1]) >= 3:  # the route's sep5 needs >= 3
+            route = bk.pyramid_flat_plain(g, 6, sep=bk.sep5)
+            route_err[name] = float((got - route).abs().max())
+    if not max_err <= 1e-5:
+        raise AssertionError(f"pyramid_flat disagrees with the plain pyramid: {max_err}")
+
+    def new():
+        return bk.pyramid_flat(grey, 6)
+
+    def route():
+        return bk.pyramid_flat_plain(grey, 6, sep=bk.sep5)
+
+    ev_route, ev_new = _in_turns(route, new, lambda fn: _time_ms(fn, 100))
+    gr_route, gr_new = _in_turns(route, new, _graph_ms)
+    plain_ms = _time_ms(lambda: bk.pyramid_flat_plain(grey, 6), 20)
+    # each launch's device time (the profiler's kernel rows)
+    launch_us = _kernel_us(new, ("pyramid_tiles", "pyramid_walk"))
+    # the frame read once, the flat tensor written once; per level the two
+    # 5-tap passes over the rows (then columns) the level keeps
+    dims = bk.level_dims(h0, w0, 6)
+    n_bytes = 4 * (h0 * w0 + 6 * (h0 + 2 * bk.PAD) * (w0 + 2 * bk.PAD))
+    n_flops = BLUR_FLOPS_PER_TAP_PASS * 2 * h0 * w0
+    for (h, w), (_, ws) in zip(dims[1:], dims[:-1]):
+        n_flops += BLUR_FLOPS_PER_TAP_PASS * (h * ws + h * w + 2 * h * w)
+    bound_ms, bound_by = _bound(n_bytes, n_flops)
+    print(f"phase 2 pyramid_flat: max_abs_err {max_err:.3e} (atol 1e-5, padding and zero "
+          f"region included) on {', '.join(shapes)}; against the 11-launch route "
+          f"{json.dumps(route_err)}; 480x640 depth 6 in turns (route, new, new, route) by "
+          f"events {ev_route[0]:.4f} / {ev_new[0]:.4f} / {ev_new[1]:.4f} / {ev_route[1]:.4f} "
+          f"ms, by graph replay {gr_route[0]:.5f} / {gr_new[0]:.5f} / {gr_new[1]:.5f} / "
+          f"{gr_route[1]:.5f} ms; per launch (profiler) {json.dumps(launch_us)} us; plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} ({n_bytes} B, {n_flops} "
+          f"flop); {bk.pyramid_plan(h0, w0, 6)['launches']} launches", flush=True)
+    # no single PyTorch call builds a pyramid: library_ms is null
+    return {"name": "pyramid_flat", "route": "cuda", "source": bk.SOURCE,
+            "replaces": "slam_robot_tpu/ops/pallas/blur.py:35",
+            "max_abs_err": max_err, "ms": min(ev_new), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "graph_ms": min(gr_new), "route_ms": min(ev_route), "route_graph_ms": min(gr_route),
+            "route_max_abs_diff": route_err, "launch_us": launch_us,
+            "timed": "build_pyramid's flat pyramid of a 480x640 frame, depth 6"}
+
+
 def _newton_lane_iters(args, threshold: float, max_iters: int) -> int:
     """Newton iterations that these lanes take (a lane stops when converged
     or out of bounds), from the plain version's step-by-step loop: the work
@@ -249,7 +360,8 @@ def _newton_lane_iters(args, threshold: float, max_iters: int) -> int:
 
 
 def phase_newton(frames):
-    """B1 kernel vs plain on real windows; returns the JSON entry."""
+    """B1's one-level call (newton_level) vs plain on real windows; returns
+    its figures."""
     import torch
 
     from slam_robot_tpu_torch import SlamConfig
@@ -295,10 +407,7 @@ def phase_newton(frames):
             err = (pos_k - pos_p).abs().max(dim=1).values
             max_err = max(max_err, float(err.max()))
             # a status may flip only for a lane ending within 2e-3 px of the margin
-            x, y = pos_p[:, 0], pos_p[:, 1]
-            near = torch.minimum(torch.minimum(x - 0.01, y - 0.01),
-                                 torch.minimum(w - 0.01 - x, h - 0.01 - y)).abs() < 2e-3
-            diff = (st_k != st_p) & ~near
+            diff = (st_k != st_p) & ~_near_margin(pos_p, w, h)
             n_status_diff += int(diff.sum())
             if F == 256 and lvl == 0:
                 # group G maps onto the same kernel: bit-identical to G = 1
@@ -331,15 +440,208 @@ def phase_newton(frames):
           f"group=4 equal to group=1 bit for bit; {tline}; F=256 L0 {bound_note}",
           flush=True)
     k_ms, p_ms = timing[(256, 0, 32, 32)]
-    # no single PyTorch call computes a Newton solve: library_ms is null
-    return {"name": "newton_level", "route": "cuda",
-            "source": "slam_robot_tpu_torch/csrc/newton.cu",
-            "replaces": "slam_robot_tpu/ops/pallas/newton.py:338",
-            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
             "timed": "one level-0 launch, F=256 lanes, 32x32 windows, 6 iterations",
             "all_timings": {f"F{F}_L{lvl}_{wh}x{ww}": {"ms": k, "plain_ms": p}
                             for (F, lvl, wh, ww), (k, p) in timing.items()}}
+
+
+def _counting_solver(stats: dict):
+    """The plain level solver, counting the lanes each level takes and the
+    Newton iterations they run (the work these inputs need), and keeping the
+    positions each level starts from (level 0 first)."""
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+
+    stats.update(lane_levels=0, lane_iters=0, starts=[])
+
+    def solver(*args, threshold, max_iters, size):
+        stats["starts"].insert(0, args[1])
+        stats["lane_levels"] += int((args[7] > 0.5).sum())
+        stats["lane_iters"] += _newton_lane_iters(args, threshold, max_iters)
+        return nk.newton_window_steps(*args, threshold=threshold, max_iters=max_iters,
+                                      size=size)
+
+    return solver
+
+
+def _near_margin(pos, w: float, h: float):
+    """Lanes ending within 2e-3 px of a w x h level's 0.01 px margin."""
+    import torch
+
+    x, y = pos[:, 0], pos[:, 1]
+    return torch.minimum(torch.minimum(x - 0.01, y - 0.01),
+                         torch.minimum(w - 0.01 - x, h - 0.01 - y)).abs() < 2e-3
+
+
+def phase_track(frames):
+    """B1's newton_track against the plain level loop, one direction per
+    launch, on a rendered frame pair; returns the JSON entry."""
+    import torch
+
+    from slam_robot_tpu_torch import SlamConfig
+    from slam_robot_tpu_torch.ops import corners, patch, pyramid, tracker_fused
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+
+    cfg = SlamConfig()
+    kw = dict(threshold=cfg.track_threshold, max_iters=cfg.track_max_iters,
+              iters_coarse=cfg.track_iters_coarse)
+    pa = pyramid.build_pyramid(frames[0], 6)
+    pb = pyramid.build_pyramid(frames[2], 6)
+    grey = pa.data[0, pyramid.PAD:-pyramid.PAD, pyramid.PAD:-pyramid.PAD]
+    cpts, cval = corners.detect(grey, cfg.max_corners, cfg.corner_quality, cfg.corner_min_dist)
+    pts = cpts[cval]
+    wmask = patch.radial_mask(13, 15.0, device="cuda")
+    dims = pyramid.level_dims(480, 640, 6)
+    h0, w0 = dims[0]
+    D = 2 * 169 + 2
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_err = stack_err = 0.0
+    n_ok_diff = n_org_diff = n_org_floor = 0
+    out = {}
+    for F in (32, 256):
+        idx = torch.arange(F, device="cuda") % pts.shape[0]
+        from_pt = pts[idx]
+        packed = tracker_fused.pack_stacks(tracker_fused.get_patch_stacks(pa, from_pt, 13))
+        init = from_pt + 3.0 * (torch.rand((F, 2), generator=gen, device="cuda") - 0.5)
+        lvls = torch.where(torch.rand((F,), generator=gen, device="cuda") > 0.5,
+                           cfg.levels_unsure, cfg.levels_confident).to(torch.int32)
+        active = torch.rand((F,), generator=gen, device="cuda") > 0.1
+        cache = tracker_fused.get_window_stacks(pa, from_pt)
+        fwd_args = (init, lvls, active, packed, wmask, dims)
+        pos, ok, stack, orgs = nk.newton_track(*fwd_args, planes=pb.data, stack=True,
+                                               origins=True, **kw)
+        fstats = {}
+        ppos, pok, pwin = nk.track_levels(_counting_solver(fstats), *fwd_args, planes=pb.data,
+                                          return_windows=True, **kw)
+        bwd_args = (from_pt, lvls, ok, stack, wmask, dims)
+        bpos, bok = nk.newton_track(*bwd_args, win_cache=cache, **kw)
+        bstats = {}
+        pbpos, pbok = nk.track_levels(_counting_solver(bstats), *bwd_args, win_cache=cache, **kw)
+        torch.cuda.synchronize()
+        for got, want in (((pos, ok), (ppos, pok)), ((bpos, bok), (pbpos, pbok))):
+            max_err = max(max_err, float((got[0] - want[0]).abs().max()))
+            n_ok_diff += int(((got[1] != want[1]) & ~_near_margin(want[0], w0, h0)).sum())
+        # the epilogue against its plain version on the kernel's own positions
+        # and windows
+        stack_err = max(stack_err, float(
+            (stack - nk.stack_at_origins(pb.data, 0, dims, pos, orgs)).abs().max()))
+        # every level's window cut where the plain loop cuts it, but for a
+        # start within 2e-3 px of a pixel boundary
+        plain_orgs = torch.stack([o for _, o in pwin], 1)
+        n_org_floor += int((plain_orgs != orgs).any(-1).sum())
+        n_org_diff += nk.origin_mismatches(pb.data, dims, orgs, plain_orgs, fstats.pop("starts"))
+        del bstats["starts"]
+        out[F] = dict(fwd_ok=int(ok.sum()), bwd_ok=int(bok.sum()), fwd=fstats, bwd=bstats)
+
+    # tolerances as phase 3's newton_level: pos 2e-3 px, ok equal but for
+    # lanes ending within 2e-3 px of the margin; the stack 1e-5
+    if not max_err <= 2e-3:
+        raise AssertionError(f"newton_track pos disagrees: max_abs_err {max_err}")
+    if n_ok_diff:
+        raise AssertionError(f"newton_track ok disagrees on {n_ok_diff} lanes")
+    if not stack_err <= 1e-5:
+        raise AssertionError(f"newton_track's backward stack disagrees: {stack_err}")
+    if n_org_diff:
+        raise AssertionError(f"newton_track cut {n_org_diff} lane-level windows elsewhere "
+                             f"than the plain loop")
+
+    # F = 256, in turns with the route it replaced: the level loop through
+    # newton_level (one launch per level) and the stack sampled after it
+    def fwd_new():
+        return nk.newton_track(*fwd_args, planes=pb.data, stack=True, **kw)
+
+    def fwd_route():
+        p, _, win = nk.track_levels(nk.newton_level, *fwd_args, planes=pb.data,
+                                    return_windows=True, **kw)
+        return nk.stack_from_windows(win, p, dims)
+
+    def bwd_new():
+        return nk.newton_track(*bwd_args, win_cache=cache, **kw)
+
+    def bwd_route():
+        return nk.track_levels(nk.newton_level, *bwd_args, win_cache=cache, **kw)
+
+    timing = {}
+    for name, route, new in (("forward", fwd_route, fwd_new), ("backward", bwd_route, bwd_new)):
+        ev_r, ev_n = _in_turns(route, new, lambda fn: _time_ms(fn, 50))
+        gr_r, gr_n = _in_turns(route, new, lambda fn: _graph_ms(fn, 20))
+        timing[name] = dict(route_ms=ev_r, ms=ev_n, route_graph_ms=gr_r, graph_ms=gr_n)
+    timing["forward"]["plain_ms"] = _time_ms(
+        lambda: nk.newton_track_plain(*fwd_args, planes=pb.data, stack=True, **kw), 5)
+    timing["backward"]["plain_ms"] = _time_ms(
+        lambda: nk.newton_track_plain(*bwd_args, win_cache=cache, **kw), 5)
+    # bytes: per lane and level that ran Newton, its packed references and
+    # the 14x14 support its taps reach, read once; forward, per lane and
+    # level that did not, the 14x14 support the stack samples (where Newton
+    # ran, the stack samples the support its taps read); pts, lvls, active
+    # and the mask read once; pos, ok and, forward, the stack written once.
+    # Operations: 90 per pixel and Newton iteration over the
+    # lane-iterations these inputs take.
+    region = 4 * 14 * 14
+    lanes = 256 * (8 + 4 + 1 + 8 + 1) + 4 * 169
+    for name, st in (("forward", out[256]["fwd"]), ("backward", out[256]["bwd"])):
+        extra = (256 * 6 - st["lane_levels"]) * region + 256 * 6 * 4 * D \
+            if name == "forward" else 0
+        n_bytes = (4 * D + region) * st["lane_levels"] + lanes + extra
+        n_flops = NEWTON_FLOPS_PER_PIXEL_ITER * 169 * st["lane_iters"]
+        timing[name]["bound_ms"], timing[name]["bound_by"] = _bound(n_bytes, n_flops)
+        timing[name].update(bytes=n_bytes, flops=n_flops, **st)
+    for name, t in timing.items():
+        print(f"phase 3 newton_track {name}, F=256, in turns (route, new, new, route) by "
+              f"events {t['route_ms'][0]:.4f} / {t['ms'][0]:.4f} / {t['ms'][1]:.4f} / "
+              f"{t['route_ms'][1]:.4f} ms, by graph replay {t['route_graph_ms'][0]:.5f} / "
+              f"{t['graph_ms'][0]:.5f} / {t['graph_ms'][1]:.5f} / {t['route_graph_ms'][1]:.5f} "
+              f"ms; plain "
+              f"{t['plain_ms']:.3f} ms; bound {t['bound_ms']:.5f} ms by {t['bound_by']} "
+              f"({t['bytes']} B, {t['lane_iters']} lane-iterations over "
+              f"{t['lane_levels']} lane-levels)", flush=True)
+    print(f"phase 3 newton_track: pos max_abs_err {max_err:.3e} (atol 2e-3), ok equal "
+          f"(near-margin lanes excepted), backward stack max_abs_err {stack_err:.3e} (atol "
+          f"1e-5); every window cut where the plain loop cuts it ({n_org_floor} lane-levels "
+          f"at a pixel boundary); "
+          f"{json.dumps({f: {k: v for k, v in o.items() if 'ok' in k} for f, o in out.items()})}",
+          flush=True)
+    f = timing["forward"]
+    # no single PyTorch call runs a Newton cascade: library_ms is null
+    return {"name": "newton_track", "route": "cuda", "source": nk.KERNEL.source,
+            "replaces": "slam_robot_tpu/ops/pallas/newton.py:338",
+            "max_abs_err": max(max_err, stack_err), "ms": min(f["ms"]),
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+            "library_ms": None,
+            "timed": "the forward direction with its stack, F=256, 6 levels",
+            "directions": timing}
+
+
+def _reset_counts() -> None:
+    """Set the main path's kernel and sweep counts to 0."""
+    from slam_robot_tpu_torch.ops import tracker_fused
+    from slam_robot_tpu_torch.ops.cuda import blur as bk
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+
+    bk.PYRAMID.launches = bk.KERNEL.launches = nk.KERNEL.launches = 0
+    tracker_fused.SWEEPS.n = 0
+
+
+def _read_counts() -> dict:
+    from slam_robot_tpu_torch.ops import tracker_fused
+    from slam_robot_tpu_torch.ops.cuda import blur as bk
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+
+    return {"pyramid_flat": bk.PYRAMID.launches, "newton_track": nk.KERNEL.launches,
+            "sep5_reflect101": bk.KERNEL.launches, "sweeps": tracker_fused.SWEEPS.n}
+
+
+def _check_counts(name: str, counts: dict, n_frames: int) -> None:
+    """One pyramid a frame in two pyramid_flat launches, no sep5 launch (no
+    route of the 11 calls), one newton_track launch per tracking direction:
+    two per sweep that ran, and sweeps that ran."""
+    if counts["pyramid_flat"] != 2 * n_frames:
+        raise AssertionError(f"{name}: pyramid_flat launches {counts} != 2 per frame")
+    if counts["sep5_reflect101"]:
+        raise AssertionError(f"{name}: the 11-launch pyramid route ran: {counts}")
+    if counts["sweeps"] <= 0 or counts["newton_track"] != 2 * counts["sweeps"]:
+        raise AssertionError(f"{name}: newton_track launches {counts} != 2 per sweep")
 
 
 def phase_main(frames):
@@ -350,16 +652,13 @@ def phase_main(frames):
     from slam_robot_tpu_torch import SlamConfig
     from slam_robot_tpu_torch.device import SYNCS
     from slam_robot_tpu_torch.models import pipeline
-    from slam_robot_tpu_torch.ops.cuda import blur as bk
-    from slam_robot_tpu_torch.ops.cuda import newton as nk
     from slam_robot_tpu_torch.utils.benchscene import sweep_pose
     from slam_robot_tpu_torch.utils.dump import ate_aligned
 
     cfg = SlamConfig()
     ps = pipeline.init(cfg, device="cuda")
     torch.cuda.synchronize()
-    bk.KERNEL.launches = 0
-    nk.KERNEL.launches = 0
+    _reset_counts()
     sync0 = SYNCS.n
     step_ms = []
     kfs = 0
@@ -376,13 +675,9 @@ def phase_main(frames):
         dropped += int(met["fast_obs_dropped"] + met["slow_obs_dropped"]
                        + met["reproject_obs_dropped"])
         canary_max = max(canary_max, float(met["normalize_canary_px"]))
-    counts = {"sep5_reflect101": bk.KERNEL.launches, "newton_level": nk.KERNEL.launches}
+    counts = _read_counts()
     syncs = (SYNCS.n - sync0) / n_frames
-
-    if counts["sep5_reflect101"] != 11 * n_frames:
-        raise AssertionError(f"blur launches {counts} != 11 per frame")
-    if counts["newton_level"] <= 0:
-        raise AssertionError("the Newton kernel never ran on the main path")
+    _check_counts("main path", counts, n_frames)
     m = ps.map
     for name, t in list(m._asdict().items()) + list(ps.matcher._asdict().items()):
         if t.is_floating_point() and not bool(torch.isfinite(t).all()):
@@ -397,9 +692,11 @@ def phase_main(frames):
     summary = {"frames": n_frames, "n_points": int(m.n_points), "live_points": n_live,
                "keyframes": kfs, "obs_dropped": dropped, "canary_max_px": canary_max,
                "ate_aligned_pct": ate_pct, "median_step_ms_last16": statistics.median(tail),
-               "host_syncs_per_frame": syncs, "launches": counts}
+               "host_syncs_per_frame": syncs, "launches": counts,
+               "launches_per_frame": {k: v / n_frames for k, v in counts.items()}}
     print(f"phase 4 main path: {n_frames} frames, median step {summary['median_step_ms_last16']:.2f} "
-          f"ms over the last {len(tail)}, {syncs:.1f} host syncs/frame, launches {counts}, "
+          f"ms over the last {len(tail)}, {syncs:.1f} host syncs/frame, launches {counts} "
+          f"({json.dumps(summary['launches_per_frame'])} per frame), "
           f"n_points {summary['n_points']} (live {n_live}), keyframes {kfs}, dropped {dropped}, "
           f"canary max {canary_max:.4f} px, Sim(3)-aligned ATE {ate_pct:.3f} % of path",
           flush=True)
@@ -491,8 +788,6 @@ def phase_replay(card: str):
     from slam_robot_tpu_torch.io.recorder import Recorder
     from slam_robot_tpu_torch.io.sources import SyntheticSource
     from slam_robot_tpu_torch.models import pipeline
-    from slam_robot_tpu_torch.ops.cuda import blur as bk
-    from slam_robot_tpu_torch.ops.cuda import newton as nk
 
     root = Path(__file__).resolve().parent / "build" / "replay"
     shutil.rmtree(root, ignore_errors=True)
@@ -505,12 +800,11 @@ def phase_replay(card: str):
         rec.save(i, src.get(i % 2, i))
     rec.close()
 
-    counts = {"sep5_reflect101": 0, "newton_level": 0}
+    counts = {"pyramid_flat": 0, "newton_track": 0, "sep5_reflect101": 0, "sweeps": 0}
     runs = {}
 
     def run(name, argv, n_frames):
-        bk.KERNEL.launches = 0
-        nk.KERNEL.launches = 0
+        _reset_counts()
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -521,21 +815,19 @@ def phase_replay(card: str):
         if rc != 0:
             raise AssertionError(f"run_replay {name} exited {rc}: {text[-2000:]}")
         summary = json.loads(text.strip().splitlines()[-1])
-        launches = {"sep5_reflect101": bk.KERNEL.launches, "newton_level": nk.KERNEL.launches}
+        launches = _read_counts()
         for k, v in launches.items():
             counts[k] += v
         if summary["frames"] != n_frames:
             raise AssertionError(f"{name}: {summary['frames']} frames, want {n_frames}: "
                                  f"{text[-2000:]}")
-        if launches["sep5_reflect101"] != 11 * n_frames:
-            raise AssertionError(f"{name}: blur launches {launches} != 11 per frame")
-        if launches["newton_level"] <= 0:
-            raise AssertionError(f"{name}: the Newton kernel never ran")
+        _check_counts(f"replay {name}", launches, n_frames)
         if not math.isfinite(summary["error"]):  # the last BA cost
             raise AssertionError(f"{name}: BA cost {summary['error']}")
         if summary["n_points"] <= 5:
             raise AssertionError(f"{name}: map too small: {summary}")
-        runs[name] = {"call_s": wall, "summary": summary, "launches": launches}
+        runs[name] = {"call_s": wall, "summary": summary, "launches": launches,
+                      "launches_per_frame": {k: v / n_frames for k, v in launches.items()}}
         return summary, text
 
     load = ["--load", str(frames_dir), "--max-frames", str(REPLAY_FRAMES)]
@@ -578,6 +870,7 @@ def phase_replay(card: str):
     # call_s: the whole main() call (init, source, final BA); the summary's
     # wall_s and fps: run_replay's own frame loop
     line = {name: {"call_s": r["call_s"], **r["summary"],
+                   "launches_per_frame": r["launches_per_frame"],
                    **({"final_ba": r["final_ba"]} if "final_ba" in r else {})}
             for name, r in runs.items()}
     print(f"phase 6 replay on {card}: {json.dumps(line)}; NaN frame: {msg}; "
@@ -616,6 +909,7 @@ def phase_probes():
     kernels = {c.kernel.name: c.kernel for c in cases}
     for k in kernels.values():
         k.launches = 0
+    bk.KERNEL.launches = 0  # probe2's reference runs pyramid.blur / pyr_down
     n_pass = 0
     for m in modules:
         out = io.StringIO()
@@ -627,6 +921,9 @@ def phase_probes():
             raise AssertionError(f"{m.__name__} exited {rc}:\n" + "\n".join(lines))
         n_pass += len(passed)
     launches = {name: k.launches for name, k in kernels.items()}
+    sep5_launches = bk.KERNEL.launches
+    if sep5_launches <= 0:
+        raise AssertionError("probe2's reference never ran sep5_reflect101")
     # each case's wrapper launches its entry point once
     want = dict(collections.Counter(c.kernel.name for c in cases))
     if launches != want:
@@ -713,9 +1010,14 @@ def phase_probes():
     rows["probe2"]["b2_three_calls_graph_ms"] = dev_ms["B2 three calls"]
     rows["newton-skeleton"].update(graph_ms=dev_ms["newton-skeleton"], b1_ms=b1_ms,
                                    b1_graph_ms=dev_ms["B1"], b1_lane_iterations=lane_iters)
+    ratios = {"B1/T14": dev_ms["B1"] / dev_ms["newton-skeleton"],
+              "B2 three calls/T17": dev_ms["B2 three calls"] / dev_ms["probe2"]}
+    rows["newton-skeleton"]["b1_over_t14"] = ratios["B1/T14"]
+    rows["probe2"]["b2_over_t17"] = ratios["B2 three calls/T17"]
     print(f"phase 7 device ms per call (a CUDA graph of 50 calls, the lesser of two "
-          f"replays): {json.dumps(dev_ms)}; B1 on the skeleton's inputs {b1_ms:.4f} ms "
-          f"by events, {lane_iters} of {f * t14.IT} lane-iterations", flush=True)
+          f"replays): {json.dumps(dev_ms)}; B1 (newton_level, one level of newton_track) on "
+          f"the skeleton's inputs {b1_ms:.4f} ms by events, {lane_iters} of {f * t14.IT} "
+          f"lane-iterations; device-time ratios {json.dumps(ratios)}", flush=True)
 
     entries = []
     for name, kern in kernels.items():
@@ -731,9 +1033,9 @@ def phase_probes():
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
             "timed": mine[0][0], "cases": [case for case, _ in mine]})
     print(f"phase 7 probes: {n_pass} cases passed on the card in {check_s:.2f} s, "
-          f"{len(seeded)} seeded cases passed, launches {launches}; "
-          f"phase {time.time() - t0:.2f} s", flush=True)
-    return entries, rows
+          f"{len(seeded)} seeded cases passed, launches {launches}, sep5_reflect101 "
+          f"{sep5_launches} (probe2's reference); phase {time.time() - t0:.2f} s", flush=True)
+    return entries, rows, sep5_launches
 
 
 def main() -> int:
@@ -767,17 +1069,34 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"rendered {n_render} bench frames in {time.time() - t0:.2f} s", flush=True)
 
-    entries = [phase_blur(frames[0]), phase_newton(frames)]
+    t_run = time.time()
+
+    def took(phase: str) -> None:
+        print(f"{phase} done at {time.time() - t_run:.1f} s", flush=True)
+
+    sep5 = phase_blur(frames[0])
+    entries = [phase_pyramid(frames[0])]
+    took("phase 2")
+    newton_level = phase_newton(frames)
+    entries.append(phase_track(frames))
+    took("phase 3")
     counts, summary, ps = phase_main(frames[:MAIN_FRAMES])
+    took("phase 4")
     if args.profile:
         summary["profile"] = phase_profile(ps, frames, MAIN_FRAMES, args.out,
                                            summary["median_step_ms_last16"])
+        took("phase 5")
     del frames, ps
     replay_counts, runs = phase_replay(card)
-    for e in entries:
+    took("phase 6")
+    for e in entries:  # the main path's kernels: phases 4 and 6
         e["launches"] = counts[e["name"]] + replay_counts[e["name"]]
-    probe_entries, probes = phase_probes()
-    entries += probe_entries
+    # newton_level is one level of newton_track's entry point: its phase 3
+    # figures go with newton_track's entry
+    entries[1]["newton_level"] = newton_level
+    probe_entries, probes, sep5["launches"] = phase_probes()
+    sep5["path"] = "phase 7: probe2's reference, pyramid.blur and pyramid.pyr_down"
+    entries += [sep5] + probe_entries
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "slam_robot_tpu"))
     if foreign:

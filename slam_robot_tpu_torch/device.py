@@ -34,15 +34,19 @@ def default_device(device=None) -> torch.device:
     return dev
 
 
-class SyncCounter:
+class Counter:
+    """A plain event count, ``n``, that a run reads and resets."""
+
+    def __init__(self):
+        self.n = 0
+
+
+class SyncCounter(Counter):
     """Counts device-to-host reads made for control flow.
 
     Each read stalls the host until the device has finished the queued work,
     so the per-frame count is the first number a latency study looks at.
     """
-
-    def __init__(self):
-        self.n = 0
 
     def read(self, t: torch.Tensor):
         """``t.tolist()``, counted as one host sync."""

@@ -6,8 +6,9 @@ with a plain C interface, written to ``build/kernels/`` at the repository
 root and named by a hash of the sources, so an edited source rebuilds and an
 unchanged one loads at once. The library loads with ``ctypes``; every
 entry point takes device pointers and the CUDA stream as ``c_void_p``,
-integers as ``c_int`` and floats as ``c_float``, and returns the
-``cudaError_t`` of its launch.
+integers as ``c_int``, floats as ``c_float`` and a parameter block (a C
+struct, :class:`Params`) as packed bytes, and returns the ``cudaError_t``
+of its launch.
 
 Nothing here runs at import: the first kernel call builds the library.
 """
@@ -19,6 +20,7 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 
@@ -36,10 +38,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     # in, out, H, W, Ho, Wo, stride, k0..k4, stream
     "sep5_reflect101": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
-    # win, pos0, org, ref, ref_valid, ref_mean, ref_sumsq, active, wmask,
-    # bounds, pos_out, status_out, F, WH, WW, threshold, max_iters, stream
-    "newton_level": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _F, _I, _P],
+    # in, flat, PyrParams (Params.block), stream
+    "pyramid_flat": [_P, _P, _P, _P],
+    "pyramid_params_size": [],
+    # TrackParams (Params.block), stream
+    "newton_track": [_P, _P],
+    "newton_track_params_size": [],
     # the tools' probes (ops/cuda/probe_*.py)
     # img, pos, mask, out, H, W, F, WS, case, stream
     "probe_windows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -83,10 +87,11 @@ class Kernel:
     def fn(self):
         return load_library()[self.name]
 
-    def launch(self, *args) -> None:
-        """Call the C entry point, raise if the launch failed, count it."""
+    def launch(self, *args, kernels: int = 1) -> None:
+        """Call the C entry point, raise if the launch failed, and count the
+        ``kernels`` launches that it made."""
         check_launch(self.name, self.fn()(*args))
-        self.launches += 1
+        self.launches += kernels
 
 
 def _nvcc() -> str:
@@ -159,6 +164,46 @@ def load_library() -> dict:
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
+
+
+class Params:
+    """A C parameter block, a struct passed to an entry point by pointer,
+    mirrored field for field: ``layout`` is ((name, struct code, count),
+    ...) in the C struct's order (codes P, q, i, f with native alignment).
+    ``block`` makes the bytes the entry point reads; the first block checks
+    that their size equals the C struct's (the entry point ``size_fn``)."""
+
+    def __init__(self, layout, size_fn: str):
+        self.layout = tuple(layout)
+        self.size_fn = size_fn
+        # the trailing zero-count item pads to the struct's alignment
+        align = "q" if any(code in "Pq" for _, code, _ in self.layout) else "i"
+        self.fmt = "@" + "".join(f"{n}{code}" for _, code, n in self.layout) + f"0{align}"
+        self.checked = False
+
+    def pack(self, **values) -> bytes:
+        """The bytes of ``values`` by field name; fields not given are 0,
+        array fields are zero-padded."""
+        flat = []
+        for name, _, n in self.layout:
+            v = values.get(name)
+            if n == 1:
+                flat.append(v or 0)
+            else:
+                v = list(v or ())
+                flat.extend(v + [0] * (n - len(v)))
+        return struct.pack(self.fmt, *flat)
+
+    def block(self, **values) -> bytes:
+        """``pack`` for an entry point of the library, after checking once
+        that the layout has the C struct's size."""
+        if not self.checked:
+            want = load_library()[self.size_fn]()
+            if struct.calcsize(self.fmt) != want:
+                raise RuntimeError(f"{self.size_fn}: the C struct is {want} bytes, its Python "
+                                   f"mirror {struct.calcsize(self.fmt)}")
+            self.checked = True
+        return self.pack(**values)
 
 
 def check_launch(name: str, err: int) -> None:

@@ -2,9 +2,10 @@
 
 Port of ``slam_robot_tpu/ops/pyramid.py``. Per MakePyramid: grey f32/255,
 GaussianBlur 5x5 sigma=1.1 at level 0; each further level is pyrDown
-followed by GaussianBlur 5x5 sigma=0.8. Both passes run through
-``ops/cuda/blur`` (the hand-written kernel on a CUDA tensor, its plain
-version on a CPU one).
+followed by GaussianBlur 5x5 sigma=0.8. ``build_pyramid`` runs the whole
+flat pyramid through ``ops/cuda/blur.pyramid_flat`` (two launches of the
+hand-written kernel on a CUDA tensor, its plain version on a CPU one);
+``blur`` and ``pyr_down`` run one pass through ``ops/cuda/blur.sep5``.
 
 The pyramid is stored FLAT, as in the JAX package: one
 [L, H0+2*PAD, W0+2*PAD] tensor with level l's edge-padded image in the
@@ -18,12 +19,12 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from slam_robot_tpu_torch.device import span
 from slam_robot_tpu_torch.ops.cuda import blur as blur_kernel
 
-PAD = 8
+PAD = blur_kernel.PAD
+level_dims = blur_kernel.level_dims
 
 
 class FlatPyramid:
@@ -47,14 +48,6 @@ class FlatPyramid:
         return self.depth_ or self.data.shape[0]
 
 
-def level_dims(height: int, width: int, depth: int) -> tuple[tuple[int, int], ...]:
-    dims = [(height, width)]
-    for _ in range(1, depth):
-        h, w = dims[-1]
-        dims.append(((h + 1) // 2, (w + 1) // 2))
-    return tuple(dims)
-
-
 def to_grey(img: torch.Tensor) -> torch.Tensor:
     """RGB (or already-grey) uint8/f32 -> grey f32 in [0,1] with the
     CV_RGB2GRAY weights (0.299, 0.587, 0.114) (hessian.h:100)."""
@@ -62,9 +55,21 @@ def to_grey(img: torch.Tensor) -> torch.Tensor:
         img = img.to(torch.float32) / 255.0
     img = img.to(torch.float32)
     if img.dim() == 3:
-        w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
-        img = img @ w
+        img = img @ _grey_weights(img.device)
     return img
+
+
+@functools.cache
+def _grey_weights(device: torch.device) -> torch.Tensor:
+    return torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32, device=device)
+
+
+@functools.cache
+def _level_sizes(height: int, width: int, depth: int, device: torch.device):
+    """(heights, widths) int32 tensors of a pyramid, made once per size."""
+    dims = level_dims(height, width, depth)
+    return (torch.tensor([d[0] for d in dims], dtype=torch.int32, device=device),
+            torch.tensor([d[1] for d in dims], dtype=torch.int32, device=device))
 
 
 @functools.cache
@@ -84,32 +89,13 @@ def pyr_down(img: torch.Tensor) -> torch.Tensor:
     return blur_kernel.pyr_down(img)
 
 
-def _edge_pad(img: torch.Tensor, pad: int = PAD) -> torch.Tensor:
-    return F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
-
-
 @span("pyramid")
 def build_pyramid(img: torch.Tensor, depth: int = 6, sigma0: float = 1.1,
                   sigma_down: float = 0.8) -> FlatPyramid:
-    """Full MakePyramid as a FlatPyramid: 2*depth - 1 blur-kernel launches."""
+    """Full MakePyramid as a FlatPyramid: ``blur.pyramid_flat`` on the grey
+    image (at most two kernel launches on the card)."""
     g = to_grey(img).contiguous()
-    g = blur(g, sigma0)
-    levels = [g]
-    for _ in range(1, depth):
-        g = blur(pyr_down(g), sigma_down)
-        levels.append(g)
-
-    h0, w0 = levels[0].shape
-    dims = level_dims(h0, w0, depth)
-    flat = torch.zeros((depth, h0 + 2 * PAD, w0 + 2 * PAD), dtype=torch.float32,
-                       device=g.device)
-    for lvl, img_l in enumerate(levels):
-        hl, wl = dims[lvl]
-        flat[lvl, : hl + 2 * PAD, : wl + 2 * PAD] = _edge_pad(img_l)
-    dev = g.device
-    return FlatPyramid(
-        data=flat,
-        heights=torch.tensor([d[0] for d in dims], dtype=torch.int32, device=dev),
-        widths=torch.tensor([d[1] for d in dims], dtype=torch.int32, device=dev),
-        depth_=depth,
-    )
+    h0, w0 = g.shape
+    heights, widths = _level_sizes(h0, w0, depth, g.device)
+    return FlatPyramid(data=blur_kernel.pyramid_flat(g, depth, sigma0, sigma_down),
+                       heights=heights, widths=widths, depth_=depth)

@@ -1,5 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
-versions on the card: B1, B2 and the tools' probe kernels.
+versions on the card: B1 (``newton_track``, and ``newton_level`` as its
+one-level call), B2 (``pyramid_flat`` and ``sep5``) and the tools' probe
+kernels, with the launches each makes per pyramid and per sweep.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -9,10 +11,14 @@ Without a CUDA device every test here skips: a CUDA kernel has no CPU or
 interpret mode. ``make_newton_case`` also feeds the CPU tests of the
 Newton kernel's plain version (tests/test_torch_newton.py).
 
-Tolerances: blur atol 1e-5 (five-tap float32 sums in another order);
-Newton pos atol 2e-3 px (convergence threshold 1e-3 px: a lane whose last
-step lands near it may take one more or one fewer step when the 169-pixel
-sums are taken in another order), status equal. Probes: copies, layouts
+Tolerances: blur and the flat pyramid atol 1e-5 (five-tap float32 sums in
+another order); Newton pos atol 2e-3 px (convergence threshold 1e-3 px: a
+lane whose last step lands near it may take one more or one fewer step
+when the 169-pixel sums are taken in another order), status and ok equal
+but for lanes ending within 2e-3 px of the level's 0.01 px margin; the
+backward stack atol 1e-5 against its plain version on the kernel's own
+positions and windows (bilinear mixes and means of the same pixels).
+Probes: copies, layouts
 and loops exact; the batched product rtol 1e-5; the grouped sampling exact
 (both sides round each product and sum alone); the two-level pyramid atol
 1e-5; the Newton stages atol 1e-3 (6 steps: 2e-3 px).
@@ -27,6 +33,8 @@ import torch
 
 from slam_robot_tpu_torch import tools
 from slam_robot_tpu_torch.ops import patch as t_patch
+from slam_robot_tpu_torch.ops import pyramid as t_pyr
+from slam_robot_tpu_torch.ops import tracker_fused as t_tf
 from slam_robot_tpu_torch.ops.cuda import blur as t_blur
 from slam_robot_tpu_torch.ops.cuda import newton as t_newton
 from slam_robot_tpu_torch.ops.cuda import probe_banded as pb
@@ -120,6 +128,149 @@ def test_newton_group_is_group_one_on_card(cuda_device, group):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (47, 63), (6, 8), (120, 158), (720, 1280)])
+def test_pyramid_flat_matches_plain_on_card(cuda_device, shape):
+    """Every element, the edge padding and the zero region included; 158
+    wide is a padded row of 696 B, not a multiple of 16; at 720x1280 the
+    second launch takes level 3 in strips."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    grey = torch.rand(shape, generator=gen, device=cuda_device)
+    before = t_blur.PYRAMID.launches
+    got = t_blur.pyramid_flat(grey, 6)
+    want = t_blur.pyramid_flat_plain(grey, 6)
+    assert t_blur.PYRAMID.launches == before + t_blur.pyramid_plan(*shape, 6)["launches"]
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got[want == 0], want[want == 0])
+
+
+@pytest.mark.cuda
+def test_build_pyramid_launches_pyramid_flat_only(cuda_device):
+    img = torch.randint(0, 255, (120, 160, 3), dtype=torch.uint8, device=cuda_device)
+    sep_before, pyr_before = t_blur.KERNEL.launches, t_blur.PYRAMID.launches
+    p = t_pyr.build_pyramid(img, 6)
+    assert t_blur.PYRAMID.launches == pyr_before + 2
+    assert t_blur.KERNEL.launches == sep_before
+    assert p.heights.device.type == "cuda" and p.heights.tolist() == [120, 60, 30, 15, 8, 4]
+
+
+def _texture(rng, h, w):
+    """A smooth seeded texture in [0, 1] (box-blurred noise)."""
+    img = rng.uniform(size=(h + 8, w + 8)).astype(np.float32)
+    k = np.ones(5, np.float32) / 5
+    for ax in (0, 1):
+        img = np.apply_along_axis(lambda r: np.convolve(r, k, mode="same"), ax, img)
+    img = img[4:4 + h, 4:4 + w]
+    return (img - img.min()) / (img.max() - img.min())
+
+
+def _track_case(dev, F=37, h=120, w=160, depth=4):
+    """Two edge-padded pyramids of a texture and its shifted copy, the packed
+    references at the first's points, perturbed starts, mixed level counts,
+    some lanes inactive and some started by the border."""
+    rng = np.random.default_rng(8)
+    img = _texture(rng, h, w + 4)
+    pa = t_pyr.build_pyramid(torch.as_tensor(img[:, :w], device=dev), depth)
+    pb = t_pyr.build_pyramid(torch.as_tensor(img[:, 3:w + 3], device=dev), depth)
+    pts = np.stack([rng.uniform(2, w - 2, F), rng.uniform(2, h - 2, F)], -1).astype(np.float32)
+    pts = torch.as_tensor(pts, device=dev)
+    packed = t_tf.pack_stacks(t_tf.get_patch_stacks(pa, pts))
+    start = pts + torch.as_tensor(rng.uniform(-4, 1, (F, 2)).astype(np.float32), device=dev)
+    lvls = torch.as_tensor(rng.choice([2, 3, depth], F).astype(np.int32), device=dev)
+    active = torch.as_tensor(rng.uniform(size=F) > 0.15, device=dev)
+    wmask = t_patch.radial_mask(13, device=dev)
+    return pa, pb, pts, start, lvls, active, packed, wmask
+
+
+def _near_margin(pos, w, h):
+    x, y = pos[:, 0], pos[:, 1]
+    return torch.minimum(torch.minimum(x - 0.01, y - 0.01),
+                         torch.minimum(w - 0.01 - x, h - 0.01 - y)).abs() < 2e-3
+
+
+def _assert_track_close(got, want, w, h):
+    (gp, gok), (wp, wok) = got, want
+    assert float((gp - wp).abs().max()) <= 2e-3
+    assert not bool(((gok != wok) & ~_near_margin(wp, w, h)).any())
+
+
+def _level_starts(solver, starts: list):
+    """``solver`` recording the positions each level starts from (called
+    coarsest level first)."""
+
+    def run(*args, **kw):
+        starts.insert(0, args[1])
+        return solver(*args, **kw)
+
+    return run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [37, 260])
+def test_newton_track_matches_plain_on_card(cuda_device, F):
+    """Forward on the planes with the backward stack, then backward on the
+    window cache, each one launch, against the plain level loop; F=260
+    lanes put more blocks than SMs on an H100. The forward pass cuts every
+    level's window where the plain loop does."""
+    pa, pb, pts, start, lvls, active, packed, wmask = _track_case(cuda_device, F=F)
+    dims = t_tf._static_dims(pb)
+    before = t_newton.KERNEL.launches
+    pos, ok, stack, orgs = t_newton.newton_track(
+        start, lvls, active, packed, wmask, dims, planes=pb.data, stack=True, origins=True)
+    assert t_newton.KERNEL.launches == before + 1
+    starts = []
+    ppos, pok, pwin = t_newton.track_levels(
+        _level_starts(t_newton.newton_window_steps, starts), start, lvls, active, packed,
+        wmask, dims, planes=pb.data, return_windows=True)
+    _assert_track_close((pos, ok), (ppos, pok), 160, 120)
+    assert bool(ok.any())
+    plain_orgs = torch.stack([o for _, o in pwin], 1)
+    assert t_newton.origin_mismatches(pb.data, dims, orgs, plain_orgs, starts) == 0
+    # the epilogue against its plain version on the kernel's own state
+    plain_stack = t_newton.stack_at_origins(pb.data, 0, dims, pos, orgs)
+    assert float((stack - plain_stack).abs().max()) <= 1e-5
+
+    wins, worgs = t_tf.get_window_stacks(pa, pts)
+    bpos, bok = t_newton.newton_track(pts, lvls, ok, stack, wmask, dims,
+                                      win_cache=(wins, worgs))
+    assert t_newton.KERNEL.launches == before + 2
+    want_b = t_newton.newton_track_plain(pts, lvls, ok, stack, wmask, dims,
+                                         win_cache=(wins, worgs))
+    _assert_track_close((bpos, bok), want_b, 160, 120)
+
+
+@pytest.mark.cuda
+def test_newton_track_view_ring_offsets_on_card(cuda_device):
+    """Per-lane plane bases (the matcher's view ring) and the ref_pyr route."""
+    pa, pb, pts, start, lvls, active, packed, wmask = _track_case(cuda_device, F=20)
+    ring = t_pyr.FlatPyramid(torch.cat([pb.data, pa.data]), None, None, depth_=4,
+                             offset=torch.tensor([4, 0] * 10, device=cuda_device))
+    dims = t_tf._static_dims(pb)
+    got = t_newton.newton_track(pts, lvls, active, packed, wmask, dims, planes=ring.data,
+                                offset=ring.offset)
+    want = t_newton.newton_track_plain(pts, lvls, active, packed, wmask, dims,
+                                       planes=ring.data, offset=ring.offset)
+    _assert_track_close(got, want, 160, 120)
+    got = t_tf.track_feature_batch(pb, start, lvls, wmask, max_iters=6, active=active,
+                                   ref_pyr=pa, ref_pts=pts)
+    want = t_newton.newton_track_plain(start, lvls, active, t_tf._extract_packed(pa, pts, 13),
+                                       wmask, dims, planes=pb.data)
+    _assert_track_close(got, want, 160, 120)
+
+
+@pytest.mark.cuda
+def test_bidirectional_sweep_is_two_launches_on_card(cuda_device):
+    pa, pb, pts, start, lvls, active, packed, wmask = _track_case(cuda_device)
+    wins = t_tf.get_window_stacks(pa, pts)
+    launches, sweeps = t_newton.KERNEL.launches, t_tf.SWEEPS.n
+    got = t_tf.track_bidirectional_batch(pa, pb, pts, start, lvls, wmask, max_iters=6,
+                                         active=active, p1_packed=packed,
+                                         bwd_ref_from_window=True, bwd_win_cache=wins)
+    assert t_newton.KERNEL.launches == launches + 2 and t_tf.SWEEPS.n == sweeps + 1
+    assert bool(got[1].any())
+
+
+@pytest.mark.cuda
 def test_pipeline_init_defaults_to_the_card(cuda_device):
     from slam_robot_tpu_torch import SlamConfig
     from slam_robot_tpu_torch.models import pipeline
@@ -142,6 +293,12 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     args[3] = args[3][:, :12]  # ref [F,12,13]
     with pytest.raises(ValueError):
         t_newton.newton_level(*args)
+    with pytest.raises(ValueError):
+        t_blur.pyramid_flat(x, 6)
+    pa, pb, pts, start, lvls, active, packed, wmask = _track_case(cuda_device, F=8)
+    with pytest.raises(ValueError):
+        t_newton.newton_track(start, lvls, active, packed[:, :3], wmask,
+                              t_tf._static_dims(pb), planes=pb.data)
 
 
 @pytest.mark.cuda
