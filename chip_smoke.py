@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's SLAM step and replay driver on one CUDA card and
-check them.
+"""Drive the PyTorch port's SLAM step, replay driver and closed loop on one
+CUDA card and check them.
 
 Run from the repository root:
 
@@ -55,15 +55,32 @@ Phases, one line each (phases 2 and 3 several):
      Newton skeleton against B1 on the skeleton's inputs, each also by
      device time (CUDA-graph replay, no host launch path), and the two
      device-time ratios
+  8. the closed loop through run_sim.main in-process: the 64-rollout fleet
+     of 300 steps (BASELINE config 4) on the card and on the CPU (reached
+     count within 1, median final distance within 0.01 m, and every
+     rollout's final distance within 1e-3 m but for goals whose commands
+     parted at a decision tie, found by stepping both devices in lockstep:
+     near-equal Dubins types or pursuit samples that steer apart, or the
+     stop radius; the card also steps from each of the CPU's states and
+     may land more than 1e-4 apart only at a tie, with the shares of such
+     states, of ties and of goals apart capped), with wall time, rollout
+     steps/s and a profile of 30 steps (launches per step, device busy
+     share); --mesh on the one card
+     (the same summary); --slam (30 steps at 160x120, depth 4, 96
+     features: finite states and estimates, phase 4's launch gates);
+     pyramid_flat and newton_track at those shapes against their plain
+     versions with phases 2 and 3's tolerances, timed beside their bounds;
+     and stop's line
 
 The JSON line before the card's line holds the main path's, the replay
-runs' and every probe case's figures. The line before the last is a JSON
-object with one entry per kernel entry point, its launches counted over
-phases 4 and 6 (pyramid_flat, newton_track: the main path), phase 7's
-mains (sep5_reflect101: probe2's reference runs pyramid.blur and
-pyr_down) or phase 7 (the probes' entry points); the last line is
-{"ok": true, "device": {...}}. Any failure raises, and the script exits
-non-zero without printing that line.
+runs', every probe case's and the closed loop's figures. The line before
+the last is a JSON object with one entry per kernel entry point, its
+launches counted over phases 4, 6 and 8 (pyramid_flat, newton_track: the
+main path, the replay driver and the SLAM loop), phase 7's mains
+(sep5_reflect101: probe2's reference runs pyramid.blur and pyr_down) or
+phase 7 (the probes' entry points); the last line is {"ok": true, "device":
+{...}}. Any failure raises, and the script exits non-zero without printing
+that line.
 """
 
 from __future__ import annotations
@@ -80,6 +97,21 @@ import time
 MAIN_FRAMES = 64
 # the replay runs' length: 2 keyframes and both BA windows, within ~60 s
 REPLAY_FRAMES = 16
+# phase 8's fleet: BASELINE config 4, 64 parallel rollouts of 300 steps
+FLEET_GOALS, FLEET_STEPS = 64, 300
+# choices this close (Dubins lengths in m, pursuit scores, turn commands, the
+# distance to the stop radius) are near-ties that float32 order decides
+# (tests/test_torch_sim.py)
+LOOP_TIE = 1e-4
+# phase 8's caps on what ties may excuse: the share of the CPU's fleet states
+# from which the card's commands or next state land more than LOOP_TIE apart
+# (the CPU tests' bound on the JAX package's states; their 1e-5 is below the
+# card's float32 rounding, up to 1.2e-5 away from ties), the share of states
+# that are ties (10.8 % on the CPU), and the share of goals that may end more
+# than 1e-3 m apart
+STATES_APART_MAX = 0.02
+TIE_SHARE_MAX = 0.2
+EXEMPT_GOALS_MAX = 0.5
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores (every kernel is float32 CUDA-core
@@ -272,6 +304,20 @@ def _in_turns(route, new, timer) -> tuple[list[float], list[float]]:
     return [r1, r2], [n1, n2]
 
 
+def _pyramid_work(h0: int, w0: int, depth: int) -> tuple[int, int]:
+    """(bytes, operations) of a flat pyramid: the frame read once, the flat
+    tensor written once; per level the two 5-tap passes over the rows (then
+    columns) the level keeps."""
+    from slam_robot_tpu_torch.ops.cuda import blur as bk
+
+    dims = bk.level_dims(h0, w0, depth)
+    n_bytes = 4 * (h0 * w0 + depth * (h0 + 2 * bk.PAD) * (w0 + 2 * bk.PAD))
+    n_flops = BLUR_FLOPS_PER_TAP_PASS * 2 * h0 * w0
+    for (h, w), (_, ws) in zip(dims[1:], dims[:-1]):
+        n_flops += BLUR_FLOPS_PER_TAP_PASS * (h * ws + h * w + 2 * h * w)
+    return n_bytes, n_flops
+
+
 def phase_pyramid(frame):
     """B2's pyramid_flat against the plain flat pyramid on three shapes, and
     timed in turns with the 11-launch route it replaced; returns the JSON
@@ -313,13 +359,7 @@ def phase_pyramid(frame):
     plain_ms = _time_ms(lambda: bk.pyramid_flat_plain(grey, 6), 20)
     # each launch's device time (the profiler's kernel rows)
     launch_us = _kernel_us(new, ("pyramid_tiles", "pyramid_walk"))
-    # the frame read once, the flat tensor written once; per level the two
-    # 5-tap passes over the rows (then columns) the level keeps
-    dims = bk.level_dims(h0, w0, 6)
-    n_bytes = 4 * (h0 * w0 + 6 * (h0 + 2 * bk.PAD) * (w0 + 2 * bk.PAD))
-    n_flops = BLUR_FLOPS_PER_TAP_PASS * 2 * h0 * w0
-    for (h, w), (_, ws) in zip(dims[1:], dims[:-1]):
-        n_flops += BLUR_FLOPS_PER_TAP_PASS * (h * ws + h * w + 2 * h * w)
+    n_bytes, n_flops = _pyramid_work(h0, w0, 6)
     bound_ms, bound_by = _bound(n_bytes, n_flops)
     print(f"phase 2 pyramid_flat: max_abs_err {max_err:.3e} (atol 1e-5, padding and zero "
           f"region included) on {', '.join(shapes)}; against the 11-launch route "
@@ -474,13 +514,83 @@ def _near_margin(pos, w: float, h: float):
                          torch.minimum(w - 0.01 - x, h - 0.01 - y)).abs() < 2e-3
 
 
+def _track_check(pa, pb, pts, cfg, F: int, gen, dims, wmask, kw) -> dict:
+    """newton_track against the plain level loop at F lanes on a frame pair:
+    lanes on ``pts`` (repeated), starts perturbed by up to 1.5 px, half the
+    lanes at ``levels_unsure`` levels and half at ``levels_confident``, 10 %
+    inactive; the forward pass on pb's planes with the backward stack its
+    epilogue samples, the backward pass on pa's window cache. Returns the
+    largest differences, the lanes whose ok differs away from the margin,
+    the lane-level windows cut elsewhere, each direction's work (lane-levels,
+    lane-iterations) and the calls' arguments."""
+    import torch
+
+    from slam_robot_tpu_torch.ops import tracker_fused
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+
+    h0, w0 = dims[0]
+    dev = pts.device
+    idx = torch.arange(F, device=dev) % pts.shape[0]
+    from_pt = pts[idx]
+    packed = tracker_fused.pack_stacks(tracker_fused.get_patch_stacks(pa, from_pt, 13))
+    init = from_pt + 3.0 * (torch.rand((F, 2), generator=gen, device=dev) - 0.5)
+    lvls = torch.where(torch.rand((F,), generator=gen, device=dev) > 0.5,
+                       cfg.levels_unsure, cfg.levels_confident).to(torch.int32)
+    active = torch.rand((F,), generator=gen, device=dev) > 0.1
+    cache = tracker_fused.get_window_stacks(pa, from_pt)
+    fwd_args = (init, lvls, active, packed, wmask, dims)
+    pos, ok, stack, orgs = nk.newton_track(*fwd_args, planes=pb.data, stack=True,
+                                           origins=True, **kw)
+    fstats = {}
+    ppos, pok, pwin = nk.track_levels(_counting_solver(fstats), *fwd_args, planes=pb.data,
+                                      return_windows=True, **kw)
+    bwd_args = (from_pt, lvls, ok, stack, wmask, dims)
+    bpos, bok = nk.newton_track(*bwd_args, win_cache=cache, **kw)
+    bstats = {}
+    pbpos, pbok = nk.track_levels(_counting_solver(bstats), *bwd_args, win_cache=cache, **kw)
+    torch.cuda.synchronize()
+    max_err, n_ok_diff = 0.0, 0
+    for got, want in (((pos, ok), (ppos, pok)), ((bpos, bok), (pbpos, pbok))):
+        max_err = max(max_err, float((got[0] - want[0]).abs().max()))
+        n_ok_diff += int(((got[1] != want[1]) & ~_near_margin(want[0], w0, h0)).sum())
+    # the epilogue against its plain version on the kernel's own positions
+    # and windows
+    stack_err = float((stack - nk.stack_at_origins(pb.data, 0, dims, pos, orgs)).abs().max())
+    # every level's window cut where the plain loop cuts it, but for a
+    # start within 2e-3 px of a pixel boundary
+    plain_orgs = torch.stack([o for _, o in pwin], 1)
+    n_org_floor = int((plain_orgs != orgs).any(-1).sum())
+    n_org_diff = nk.origin_mismatches(pb.data, dims, orgs, plain_orgs, fstats.pop("starts"))
+    del bstats["starts"]
+    return dict(max_err=max_err, n_ok_diff=n_ok_diff, stack_err=stack_err,
+                n_org_floor=n_org_floor, n_org_diff=n_org_diff, fwd_ok=int(ok.sum()),
+                bwd_ok=int(bok.sum()), fwd=fstats, bwd=bstats, fwd_args=fwd_args,
+                bwd_args=bwd_args, cache=cache)
+
+
+def _track_work(F: int, L: int, st: dict, forward: bool) -> tuple[int, int]:
+    """(bytes, operations) of one tracking direction. Bytes: per lane and
+    level that ran Newton, its packed references and the 14x14 support its
+    taps reach, read once; forward, per lane and level that did not, the
+    14x14 support the stack samples (where Newton ran, the stack samples the
+    support its taps read); pts, lvls, active and the mask read once; pos,
+    ok and, forward, the stack written once. Operations: 90 per pixel and
+    Newton iteration over the lane-iterations these inputs take."""
+    D = 2 * 169 + 2
+    region = 4 * 14 * 14
+    lanes = F * (8 + 4 + 1 + 8 + 1) + 4 * 169
+    extra = (F * L - st["lane_levels"]) * region + F * L * 4 * D if forward else 0
+    n_bytes = (4 * D + region) * st["lane_levels"] + lanes + extra
+    return n_bytes, NEWTON_FLOPS_PER_PIXEL_ITER * 169 * st["lane_iters"]
+
+
 def phase_track(frames):
     """B1's newton_track against the plain level loop, one direction per
     launch, on a rendered frame pair; returns the JSON entry."""
     import torch
 
     from slam_robot_tpu_torch import SlamConfig
-    from slam_robot_tpu_torch.ops import corners, patch, pyramid, tracker_fused
+    from slam_robot_tpu_torch.ops import corners, patch, pyramid
     from slam_robot_tpu_torch.ops.cuda import newton as nk
 
     cfg = SlamConfig()
@@ -493,46 +603,18 @@ def phase_track(frames):
     pts = cpts[cval]
     wmask = patch.radial_mask(13, 15.0, device="cuda")
     dims = pyramid.level_dims(480, 640, 6)
-    h0, w0 = dims[0]
-    D = 2 * 169 + 2
     gen = torch.Generator(device="cuda").manual_seed(2)
     max_err = stack_err = 0.0
     n_ok_diff = n_org_diff = n_org_floor = 0
     out = {}
     for F in (32, 256):
-        idx = torch.arange(F, device="cuda") % pts.shape[0]
-        from_pt = pts[idx]
-        packed = tracker_fused.pack_stacks(tracker_fused.get_patch_stacks(pa, from_pt, 13))
-        init = from_pt + 3.0 * (torch.rand((F, 2), generator=gen, device="cuda") - 0.5)
-        lvls = torch.where(torch.rand((F,), generator=gen, device="cuda") > 0.5,
-                           cfg.levels_unsure, cfg.levels_confident).to(torch.int32)
-        active = torch.rand((F,), generator=gen, device="cuda") > 0.1
-        cache = tracker_fused.get_window_stacks(pa, from_pt)
-        fwd_args = (init, lvls, active, packed, wmask, dims)
-        pos, ok, stack, orgs = nk.newton_track(*fwd_args, planes=pb.data, stack=True,
-                                               origins=True, **kw)
-        fstats = {}
-        ppos, pok, pwin = nk.track_levels(_counting_solver(fstats), *fwd_args, planes=pb.data,
-                                          return_windows=True, **kw)
-        bwd_args = (from_pt, lvls, ok, stack, wmask, dims)
-        bpos, bok = nk.newton_track(*bwd_args, win_cache=cache, **kw)
-        bstats = {}
-        pbpos, pbok = nk.track_levels(_counting_solver(bstats), *bwd_args, win_cache=cache, **kw)
-        torch.cuda.synchronize()
-        for got, want in (((pos, ok), (ppos, pok)), ((bpos, bok), (pbpos, pbok))):
-            max_err = max(max_err, float((got[0] - want[0]).abs().max()))
-            n_ok_diff += int(((got[1] != want[1]) & ~_near_margin(want[0], w0, h0)).sum())
-        # the epilogue against its plain version on the kernel's own positions
-        # and windows
-        stack_err = max(stack_err, float(
-            (stack - nk.stack_at_origins(pb.data, 0, dims, pos, orgs)).abs().max()))
-        # every level's window cut where the plain loop cuts it, but for a
-        # start within 2e-3 px of a pixel boundary
-        plain_orgs = torch.stack([o for _, o in pwin], 1)
-        n_org_floor += int((plain_orgs != orgs).any(-1).sum())
-        n_org_diff += nk.origin_mismatches(pb.data, dims, orgs, plain_orgs, fstats.pop("starts"))
-        del bstats["starts"]
-        out[F] = dict(fwd_ok=int(ok.sum()), bwd_ok=int(bok.sum()), fwd=fstats, bwd=bstats)
+        r = _track_check(pa, pb, pts, cfg, F, gen, dims, wmask, kw)
+        max_err, stack_err = max(max_err, r["max_err"]), max(stack_err, r["stack_err"])
+        n_ok_diff += r["n_ok_diff"]
+        n_org_diff += r["n_org_diff"]
+        n_org_floor += r["n_org_floor"]
+        out[F] = {k: r[k] for k in ("fwd_ok", "bwd_ok", "fwd", "bwd")}
+    fwd_args, bwd_args, cache = r["fwd_args"], r["bwd_args"], r["cache"]
 
     # tolerances as phase 3's newton_level: pos 2e-3 px, ok equal but for
     # lanes ending within 2e-3 px of the margin; the stack 1e-5
@@ -571,20 +653,8 @@ def phase_track(frames):
         lambda: nk.newton_track_plain(*fwd_args, planes=pb.data, stack=True, **kw), 5)
     timing["backward"]["plain_ms"] = _time_ms(
         lambda: nk.newton_track_plain(*bwd_args, win_cache=cache, **kw), 5)
-    # bytes: per lane and level that ran Newton, its packed references and
-    # the 14x14 support its taps reach, read once; forward, per lane and
-    # level that did not, the 14x14 support the stack samples (where Newton
-    # ran, the stack samples the support its taps read); pts, lvls, active
-    # and the mask read once; pos, ok and, forward, the stack written once.
-    # Operations: 90 per pixel and Newton iteration over the
-    # lane-iterations these inputs take.
-    region = 4 * 14 * 14
-    lanes = 256 * (8 + 4 + 1 + 8 + 1) + 4 * 169
     for name, st in (("forward", out[256]["fwd"]), ("backward", out[256]["bwd"])):
-        extra = (256 * 6 - st["lane_levels"]) * region + 256 * 6 * 4 * D \
-            if name == "forward" else 0
-        n_bytes = (4 * D + region) * st["lane_levels"] + lanes + extra
-        n_flops = NEWTON_FLOPS_PER_PIXEL_ITER * 169 * st["lane_iters"]
+        n_bytes, n_flops = _track_work(256, 6, st, name == "forward")
         timing[name]["bound_ms"], timing[name]["bound_by"] = _bound(n_bytes, n_flops)
         timing[name].update(bytes=n_bytes, flops=n_flops, **st)
     for name, t in timing.items():
@@ -736,14 +806,11 @@ def phase_profile(ps, frames, start: int, out_dir: str, step_ms: float):
         torch.cuda.synchronize()
         wall_ms = 1000.0 * (time.perf_counter() - t0)
     events = prof.key_averages()
-    def self_dev(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     spans = ("matcher", "pyramid", "track_sweep", "keyframe", "slam", "ba_solve",
              "reproject", "clean", "epipolar", "normalize")
     # a span also shows as a device-side annotation row covering its
     # kernels: leave those out of the kernel sum and read spans host-side
-    dev_us = sum(self_dev(e) for e in events
+    dev_us = sum(_self_device_us(e) for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in spans)
     by_span = {}
     for e in events:
@@ -1038,6 +1105,344 @@ def phase_probes():
     return entries, rows, sep5_launches
 
 
+def _self_device_us(e) -> float:
+    """A profiler row's own device time (us), under either attribute name."""
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def _run_sim(argv):
+    """run_sim.main in-process: (its JSON summary, its results, wall s)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from slam_robot_tpu_torch import run_sim
+
+    out, res = io.StringIO(), {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = run_sim.main(argv, results=res)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    if rc != 0:
+        raise AssertionError(f"run_sim {argv} exited {rc}: {text[-2000:]}")
+    return json.loads(text.strip().splitlines()[-1]), res, wall
+
+
+def _decision_ties(vs, goal):
+    """States whose commands a float32 near-tie decides: among the Dubins
+    types within LOOP_TIE m of the shortest and, on each, the samples within
+    LOOP_TIE of its best pursuit score (``sim.pursuit_samples``, pure
+    pursuit's own scoring), the turn commands span more than LOOP_TIE; or
+    the distance to the goal lies within LOOP_TIE of ``sim.STOP_RADIUS``.
+    (Many states tie between types that trace one curve; those steer alike
+    and do not count.)"""
+    import torch
+
+    from slam_robot_tpu_torch.models import planner, sim
+
+    paths, lengths = planner.all_paths(vs.pos, vs.heading, goal[..., :2], goal[..., 2])
+    pos, heading = vs.pos[..., None, :], vs.heading[..., None]          # [B,1,2], [B,1]
+    score, turn = sim.pursuit_samples(pos.expand(*lengths.shape, 2),
+                                      heading.expand_as(lengths), paths)  # [B,18,193]
+    cand = (((lengths - lengths.min(-1, keepdim=True).values) <= LOOP_TIE)[..., None]
+            & (score >= score.max(-1, keepdim=True).values - LOOP_TIE))
+    span = (torch.where(cand, turn, -math.inf).amax((-2, -1))
+            - torch.where(cand, turn, math.inf).amin((-2, -1)))
+    stop = (planner.norm(goal[..., :2] - vs.pos) - sim.STOP_RADIUS).abs() < LOOP_TIE
+    return (span > LOOP_TIE) | stop
+
+
+def _fleet_lockstep(goals, n_steps: int) -> dict:
+    """sim.rollout's loop on the card and on the CPU in lockstep from the
+    same goals. Per goal: the first step whose commands part (turn by more
+    than 1e-4, or speed; -1 where none do), whether the CPU's state there
+    was a decision tie, and each device's final distances. Per state of the
+    CPU's rollouts, as the CPU tests step from the JAX package's states: the
+    largest difference between the card's commands and next state from that
+    same state and the CPU's, whether each state where it passes LOOP_TIE is
+    a decision tie, and the share of all states that are ties (found on the
+    card)."""
+    import torch
+
+    from slam_robot_tpu_torch.models import sim, vehicle
+
+    devs = ("cuda", "cpu")
+    g = {d: goals.to(d) for d in devs}
+    vs = {d: vehicle.init_state(batch=goals.shape[:1], device=d) for d in devs}
+    first = torch.full(goals.shape[:1], -1, dtype=torch.long)
+    tied = torch.zeros(goals.shape[:1], dtype=torch.bool)
+    gaps = torch.zeros(n_steps, *goals.shape[:1])
+    differ_tied = torch.zeros(n_steps, *goals.shape[:1], dtype=torch.bool)
+    states, dist = [], {}
+    for s in range(n_steps):
+        cmd = {d: sim.pure_pursuit(vs[d], g[d]) for d in devs}
+        split = (((cmd["cuda"][1].cpu() - cmd["cpu"][1]).abs() > 1e-4)
+                 | (cmd["cuda"][0].cpu() != cmd["cpu"][0])) & (first < 0)
+        if bool(split.any()):
+            first[split] = s
+            tied |= split & _decision_ties(vs["cpu"], g["cpu"])
+        # the card one step from the CPU's own state
+        here = vehicle.VehicleState(*(x.cuda() for x in vs["cpu"]))
+        shared = sim.pure_pursuit(here, g["cuda"])
+        nxt = {d: vehicle.step(st, *c[:2], 0.1)
+               for d, st, c in (("cuda", here, shared), ("cpu", vs["cpu"], cmd["cpu"]))}
+        for a, b in zip(tuple(shared) + tuple(nxt["cuda"]), tuple(cmd["cpu"]) + tuple(nxt["cpu"])):
+            gap = (a.cpu() - b).abs()
+            gaps[s] = torch.maximum(gaps[s], gap.reshape(len(gap), -1).amax(-1))
+        at = gaps[s] > LOOP_TIE
+        if bool(at.any()):
+            differ_tied[s, at] = _decision_ties(vehicle.VehicleState(*(x[at] for x in vs["cpu"])),
+                                                g["cpu"][at])
+        states.append(here)
+        for d in devs:
+            dist[d] = cmd[d][2]
+        vs = {"cuda": vehicle.step(vs["cuda"], *cmd["cuda"][:2], 0.1), "cpu": nxt["cpu"]}
+    n_ties = sum(int(_decision_ties(st, g["cuda"]).sum()) for st in states)
+    return {"first": first, "tied": tied, "dist": {d: v.cpu() for d, v in dist.items()},
+            "gaps": gaps, "differ_tied": differ_tied,
+            "tie_share": n_ties / (n_steps * goals.shape[0])}
+
+
+def _fleet_profile(goals, n_steps: int) -> dict:
+    """torch.profiler over ``n_steps`` of the card's fleet: kernel launches
+    and device busy ms per step, against the same run's unprofiled wall
+    time (the profiler slows the host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from slam_robot_tpu_torch.models import sim
+
+    sim.rollout(goals, n_steps=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.rollout(goals, n_steps=n_steps)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.rollout(goals, n_steps=n_steps)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    busy_ms = sum(_self_device_us(e) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return {"steps": n_steps, "launches_per_step": launches / n_steps,
+            "device_busy_ms_per_step": busy_ms / n_steps,
+            "wall_ms_per_step": wall_ms / n_steps, "device_busy_share": busy_ms / wall_ms}
+
+
+def _finite(name: str, tensors) -> None:
+    import torch
+
+    for t in tensors:
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"non-finite values in {name}")
+
+
+def phase_loop_kernels(cfg) -> dict:
+    """B2's pyramid_flat and B1's newton_track at the SLAM loop's shapes (a
+    rendered 120x160 frame, depth 4; F = 96 lanes over 4 levels) against
+    their plain versions with phases 2 and 3's tolerances, each timed by
+    events and by graph replay beside its bound; returns both figures."""
+    import torch
+
+    from slam_robot_tpu_torch.models import renderer, sim, vehicle
+    from slam_robot_tpu_torch.ops import corners, patch, pyramid
+    from slam_robot_tpu_torch.ops.cuda import blur as bk
+    from slam_robot_tpu_torch.ops.cuda import newton as nk
+    from slam_robot_tpu_torch.utils import synthetic
+
+    h0, w0, depth, F = cfg.image_height, cfg.image_width, cfg.pyramid_depth, cfg.max_features
+    world = sim.make_world(400, seed=0, device="cuda")
+    k = torch.as_tensor(synthetic.reference_intrinsics(cfg), device="cuda")
+    # the loop's camera turned to +Z, where the landmarks are, and one 0.2 s
+    # step later
+    vs = vehicle.init_state(heading=math.pi / 2, device="cuda")
+    frames = []
+    for _ in range(2):
+        q, t = sim.camera_pose(vs)
+        frames.append(renderer.render(q, t, k, world.points, world.brightness, h0, w0))
+        vs = vehicle.step(vs, 0.5, 0.2, 0.2)
+
+    # B2: every element, the edge padding and the zero region included
+    grey = frames[0].contiguous()
+    got, want = bk.pyramid_flat(grey, depth), bk.pyramid_flat_plain(grey, depth)
+    torch.cuda.synchronize()
+    pyr_err = float((got - want).abs().max())
+    if not pyr_err <= 1e-5:
+        raise AssertionError(f"pyramid_flat at {h0}x{w0} depth {depth}: max_abs_err {pyr_err}")
+    if not torch.equal(got[want == 0], want[want == 0]):
+        raise AssertionError("pyramid_flat: the zero region is not zero")
+    n_bytes, n_flops = _pyramid_work(h0, w0, depth)
+    pb_ms, pb_by = _bound(n_bytes, n_flops)
+    pyr = {"shape": f"{h0}x{w0}, depth {depth}", "max_abs_err": pyr_err,
+           "launches_per_call": bk.pyramid_plan(h0, w0, depth)["launches"],
+           "ms": _time_ms(lambda: bk.pyramid_flat(grey, depth), 100),
+           "graph_ms": _graph_ms(lambda: bk.pyramid_flat(grey, depth)),
+           "plain_ms": _time_ms(lambda: bk.pyramid_flat_plain(grey, depth), 20),
+           "bound_ms": pb_ms, "bound_by": pb_by, "bytes": n_bytes, "flops": n_flops}
+
+    # B1: both directions at F lanes over the loop's pyramids
+    kw = dict(threshold=cfg.track_threshold, max_iters=cfg.track_max_iters,
+              iters_coarse=cfg.track_iters_coarse)
+    pa, pb = pyramid.build_pyramid(frames[0], depth), pyramid.build_pyramid(frames[1], depth)
+    gpa = pa.data[0, pyramid.PAD:-pyramid.PAD, pyramid.PAD:-pyramid.PAD]
+    cpts, cval = corners.detect(gpa, cfg.max_corners, cfg.corner_quality, cfg.corner_min_dist)
+    pts = cpts[cval]
+    wmask = patch.radial_mask(13, 15.0, device="cuda")
+    dims = pyramid.level_dims(h0, w0, depth)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    r = _track_check(pa, pb, pts, cfg, F, gen, dims, wmask, kw)
+    if not r["max_err"] <= 2e-3:
+        raise AssertionError(f"newton_track at F={F} L={depth}: pos max_abs_err {r['max_err']}")
+    if r["n_ok_diff"]:
+        raise AssertionError(f"newton_track at F={F} L={depth}: ok disagrees on "
+                             f"{r['n_ok_diff']} lanes")
+    if not r["stack_err"] <= 1e-5:
+        raise AssertionError(f"newton_track at F={F} L={depth}: stack {r['stack_err']}")
+    if r["n_org_diff"]:
+        raise AssertionError(f"newton_track at F={F} L={depth}: {r['n_org_diff']} windows "
+                             f"cut elsewhere than the plain loop")
+    track = {"shape": f"F={F}, {depth} levels, {h0}x{w0}", "corners": int(pts.shape[0]),
+             "max_abs_err": max(r["max_err"], r["stack_err"]), "pos_err": r["max_err"],
+             "stack_err": r["stack_err"], "fwd_ok": r["fwd_ok"], "bwd_ok": r["bwd_ok"]}
+    calls = {"forward": lambda: nk.newton_track(*r["fwd_args"], planes=pb.data, stack=True,
+                                                **kw),
+             "backward": lambda: nk.newton_track(*r["bwd_args"], win_cache=r["cache"], **kw)}
+    plain = {"forward": lambda: nk.newton_track_plain(*r["fwd_args"], planes=pb.data,
+                                                      stack=True, **kw),
+             "backward": lambda: nk.newton_track_plain(*r["bwd_args"], win_cache=r["cache"],
+                                                       **kw)}
+    for name, st in (("forward", r["fwd"]), ("backward", r["bwd"])):
+        n_bytes, n_flops = _track_work(F, depth, st, name == "forward")
+        b_ms, b_by = _bound(n_bytes, n_flops)
+        track[name] = {"ms": _time_ms(calls[name], 100), "graph_ms": _graph_ms(calls[name], 20),
+                       "plain_ms": _time_ms(plain[name], 5), "bound_ms": b_ms, "bound_by": b_by,
+                       "bytes": n_bytes, "flops": n_flops, **st}
+    return {"pyramid_flat": pyr, "newton_track": track}
+
+
+def phase_loop(card: str):
+    """Phase 8: the closed loop through run_sim.main in-process. Returns (the
+    SLAM run's kernel counts, the phase's summary, the kernels' figures at
+    the loop's shapes)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from slam_robot_tpu_torch import SlamConfig, stop
+    from slam_robot_tpu_torch.run_sim import SLAM_LOOP
+
+    t0 = time.time()
+    # 1. the fleet (BASELINE config 4) on the card and on the CPU
+    argv = ["--goals", str(FLEET_GOALS), "--steps", str(FLEET_STEPS)]
+    card_sum, on_card, card_s = _run_sim(argv)
+    cpu_sum, on_cpu, cpu_s = _run_sim(argv + ["--device", "cpu"])
+    d_card, d_cpu = on_card["dist"].cpu().numpy(), on_cpu["dist"].numpy()
+    _finite("the card's fleet", [on_card["traj"], on_card["dist"]])
+    reached = [int((d < 0.5).sum()) for d in (d_card, d_cpu)]
+    median = [float(np.median(d)) for d in (d_card, d_cpu)]
+    if abs(reached[0] - reached[1]) > 1:
+        raise AssertionError(f"fleet reached {reached[0]} on the card, {reached[1]} on the CPU")
+    if abs(median[0] - median[1]) > 0.01:
+        raise AssertionError(f"fleet median {median[0]} m on the card, {median[1]} on the CPU")
+    lock = _fleet_lockstep(on_card["goals"], FLEET_STEPS)
+    first, tied = lock["first"], lock["tied"]
+    if not (np.array_equal(lock["dist"]["cuda"].numpy(), d_card)
+            and np.array_equal(lock["dist"]["cpu"].numpy(), d_cpu)):
+        raise AssertionError("the lockstep loop's distances differ from run_sim's")
+    gaps, differ_tied = lock["gaps"].numpy(), lock["differ_tied"].numpy()
+    differ = gaps > LOOP_TIE
+    if (differ & ~differ_tied).any() or differ.mean() > STATES_APART_MAX:
+        raise AssertionError(
+            f"{int(differ.sum())} of {differ.size} states step more than {LOOP_TIE} apart on the card "
+            f"and the CPU ({int((differ & ~differ_tied).sum())} without a decision tie; at most "
+            f"{STATES_APART_MAX:.0%} may, each at a tie)")
+    if lock["tie_share"] > TIE_SHARE_MAX:
+        raise AssertionError(f"{lock['tie_share']:.2%} of the fleet's states are decision ties, "
+                             f"more than {TIE_SHARE_MAX:.0%}")
+    apart = np.abs(d_card - d_cpu) > 1e-3
+    untied = np.nonzero(apart & ~tied.numpy())[0]
+    if untied.size:
+        raise AssertionError(f"goals {untied.tolist()} end more than 1e-3 m apart on the card "
+                             f"and the CPU without a decision tie")
+    if apart.sum() > EXEMPT_GOALS_MAX * FLEET_GOALS:
+        raise AssertionError(f"{int(apart.sum())} of {FLEET_GOALS} goals end more than 1e-3 m "
+                             f"apart, more than {EXEMPT_GOALS_MAX:.0%}")
+    prof = _fleet_profile(on_card["goals"], 30)
+    fleet = {"card": card_sum, "cpu": cpu_sum, "card_call_s": card_s, "cpu_call_s": cpu_s,
+             "fleet_steps_per_s": FLEET_STEPS / card_s,
+             "rollout_steps_per_s": FLEET_GOALS * FLEET_STEPS / card_s,
+             "goals_apart_1e-3": int(apart.sum()), "goals_parted_at_a_tie": int(tied.sum()),
+             "states_apart_1e-4": int(differ.sum()), "states": int(differ.size),
+             "largest_gap_within_1e-4": float(gaps[~differ].max()),
+             "smallest_gap_apart": float(gaps[differ].min()) if differ.any() else None,
+             "tie_share": lock["tie_share"],
+             "first_split_steps": sorted(int(x) for x in first[first >= 0]),
+             "max_final_dist_diff_m": float(np.abs(d_card - d_cpu).max()), "profile": prof}
+    print(f"phase 8 fleet on {card}: {FLEET_GOALS} rollouts x {FLEET_STEPS} steps in "
+          f"{card_s:.3f} s ({fleet['rollout_steps_per_s']:.1f} rollout steps/s), CPU "
+          f"{cpu_s:.3f} s; card {json.dumps(card_sum)}; CPU {json.dumps(cpu_sum)}; reached "
+          f"{reached}, median {median} m; {int(apart.sum())} goals end > 1e-3 m apart, every "
+          f"one parted at a decision tie ({int(tied.sum())} parted at one, steps "
+          f"{fleet['first_split_steps']}); from the CPU's states {int(differ.sum())} of "
+          f"{differ.size} step > {LOOP_TIE} apart, each at a tie (the others within "
+          f"{fleet['largest_gap_within_1e-4']:.3g}, those apart by >= "
+          f"{fleet['smallest_gap_apart']}); {lock['tie_share']:.4%} of the states are ties; "
+          f"profile of {prof['steps']} steps: "
+          f"{json.dumps(prof)}", flush=True)
+
+    # 2. the same on a mesh of the one card
+    mesh_sum, mesh, mesh_s = _run_sim(argv + ["--mesh"])
+    if ({k: v for k, v in mesh_sum.items() if k != "wall_s"}
+            != {k: v for k, v in card_sum.items() if k != "wall_s"}
+            or not torch.equal(mesh["dist"], on_card["dist"])):
+        raise AssertionError(f"--mesh {mesh_sum} differs from the fleet {card_sum}")
+    fleet["mesh"], fleet["mesh_call_s"] = mesh_sum, mesh_s
+    print(f"phase 8 mesh: {json.dumps(mesh_sum)} in {mesh_s:.3f} s, equal to the fleet's",
+          flush=True)
+
+    # 3. SLAM in the loop, with the launch gates of phases 4 and 6
+    _reset_counts()
+    slam_sum, slam, slam_s = _run_sim(["--slam"])
+    counts = _read_counts()
+    n = slam_sum["steps"]
+    if n != 30:
+        raise AssertionError(f"SLAM in the loop ran {n} steps, want 30")
+    _check_counts("SLAM in the loop", counts, n)
+    _finite("the SLAM loop's trajectory, estimates or distance",
+            [slam["traj"], slam["est"], slam["dist"]])
+    ps = slam["pipeline"]
+    _finite("the SLAM loop's last state", list(ps.map) + list(ps.matcher))
+    step_ms = slam["step_ms"]
+    loop = {"fleet": fleet, "slam": {
+        **slam_sum, "call_s": slam_s, "median_step_ms": statistics.median(step_ms),
+        "step_ms_min_max": [min(step_ms), max(step_ms)],
+        "final_dist_m_unrounded": float(slam["dist"]),
+        "est_final_mm_unrounded": slam["est"][-1].tolist(), "n_points": int(ps.map.n_points),
+        "launches": counts, "launches_per_frame": {k: v / n for k, v in counts.items()}}}
+    print(f"phase 8 SLAM in the loop on {card}: {json.dumps(loop['slam'])}", flush=True)
+
+    # 4. the kernels at the loop's shapes
+    kern = phase_loop_kernels(SlamConfig(**SLAM_LOOP))
+    print(f"phase 8 kernels at the loop's shapes on {card}: {json.dumps(kern)}", flush=True)
+
+    # 5. the emergency stop
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = stop.main()
+    if rc != 0 or out.getvalue() != "stop sequence issued (10 control transfers)\n":
+        raise AssertionError(f"stop exited {rc}: {out.getvalue()!r}")
+    loop["stop"] = out.getvalue().strip()
+    print(f"phase 8 stop: {loop['stop']}; phase {time.time() - t0:.2f} s", flush=True)
+    return counts, loop, kern
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="K",
@@ -1089,19 +1494,27 @@ def main() -> int:
     del frames, ps
     replay_counts, runs = phase_replay(card)
     took("phase 6")
-    for e in entries:  # the main path's kernels: phases 4 and 6
+    for e in entries:  # the main path's kernels: phases 4 and 6 (8 below)
         e["launches"] = counts[e["name"]] + replay_counts[e["name"]]
     # newton_level is one level of newton_track's entry point: its phase 3
     # figures go with newton_track's entry
     entries[1]["newton_level"] = newton_level
     probe_entries, probes, sep5["launches"] = phase_probes()
+    took("phase 7")
+    loop_counts, loop, loop_kernels = phase_loop(card)
+    took("phase 8")
+    for e in entries:  # the main path's kernels: phases 4, 6 and 8
+        e["launches"] += loop_counts[e["name"]]
+        e["loop_shapes"] = loop_kernels[e["name"]]
+        e["max_abs_err"] = max(e["max_abs_err"], loop_kernels[e["name"]]["max_abs_err"])
     sep5["path"] = "phase 7: probe2's reference, pyramid.blur and pyramid.pyr_down"
     entries += [sep5] + probe_entries
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "slam_robot_tpu"))
     if foreign:
         raise AssertionError(f"the port loaded the JAX package or JAX: {foreign}")
-    print(json.dumps({"main_path": summary, "replay": runs, "probes": probes}))
+    print(json.dumps({"main_path": summary, "replay": runs, "probes": probes,
+                      "closed_loop": loop}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

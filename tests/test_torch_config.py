@@ -72,30 +72,41 @@ def test_port_modules_import_nothing_of_the_jax_package():
         "             or m.startswith('jaxlib') or m == 'slam_robot_tpu'\n"
         "             or m.startswith('slam_robot_tpu.'))\n"
         "assert not bad, bad\n"
-        "assert 'slam_robot_tpu_torch.run_replay' in names, names\n"
-        "assert 'slam_robot_tpu_torch.tools.probe_newton_kernel' in names, names\n"
+        "for want in ('run_replay', 'tools.probe_newton_kernel', 'run_sim', 'stop',\n"
+        "             'models.vehicle', 'models.planner', 'models.sim', 'parallel.mesh',\n"
+        "             'parallel.rollouts', 'io.usb'):\n"
+        "    assert 'slam_robot_tpu_torch.' + want in names, (want, names)\n"
         "print(len(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, env=env, cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert int(res.stdout.strip()) >= 30
+    assert int(res.stdout.strip()) >= 40
 
 
 def test_entry_points_without_a_device_mean_the_card():
     if torch.cuda.is_available():
         pytest.skip("this test checks the refusal where torch sees no CUDA device")
     from slam_robot_tpu_torch.io.sources import SyntheticSource
-    from slam_robot_tpu_torch.models import localmap, matcher, pipeline, renderer
+    from slam_robot_tpu_torch.models import (localmap, matcher, pipeline, planner, renderer, sim,
+                                            vehicle)
+    from slam_robot_tpu_torch.parallel import mesh
     from slam_robot_tpu_torch.utils import benchscene
 
     cfg = SlamConfig(image_width=160, image_height=120, pyramid_depth=4,
                      max_features=64, max_points=128, max_obs=1024)
+    path = planner.shortest_path(torch.zeros(2), 0.0, torch.tensor([4.0, 3.0]), 0.0)[0]
     for call in (lambda: pipeline.init(cfg), lambda: localmap.empty(cfg),
                  lambda: matcher.init(cfg), lambda: benchscene.make_frames(cfg, 1),
                  lambda: SyntheticSource(cfg, n_frames=2),
-                 lambda: renderer._background(12, 16), lambda: default_device("cuda")):
+                 lambda: renderer._background(12, 16), lambda: default_device("cuda"),
+                 lambda: vehicle.init_state(), lambda: sim.make_world(10),
+                 lambda: sim.rollout([[3.0, 2.0, 0.0]], n_steps=1), lambda: mesh.make_mesh(),
+                 lambda: planner.shortest_path([0.0, 0.0], 0.0, [4.0, 3.0], 0.0),
+                 lambda: planner.all_paths([0.0, 0.0], 0.0, [4.0, 3.0], 0.0),
+                 lambda: planner.interpolate_path([0.0, 0.0], 0.0, path),
+                 lambda: planner.path_endpoint([0.0, 0.0], 0.0, path)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert default_device("cpu") == torch.device("cpu")

@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions on the card: B1 (``newton_track``, and ``newton_level`` as its
 one-level call), B2 (``pyramid_flat`` and ``sep5``) and the tools' probe
-kernels, with the launches each makes per pyramid and per sweep.
+kernels, with the launches each makes per pyramid and per sweep; and the
+closed loop on the card (the fleet without a host read, the SLAM loop's
+launch gates at run_sim's 120x160 shapes).
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -206,12 +208,13 @@ def _level_starts(solver, starts: list):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("F", [37, 260])
+@pytest.mark.parametrize("F", [37, 96, 260])
 def test_newton_track_matches_plain_on_card(cuda_device, F):
     """Forward on the planes with the backward stack, then backward on the
-    window cache, each one launch, against the plain level loop; F=260
-    lanes put more blocks than SMs on an H100. The forward pass cuts every
-    level's window where the plain loop does."""
+    window cache, each one launch, against the plain level loop; F=96 is
+    the SLAM loop's (run_sim --slam: 120x160, 4 levels), F=260 lanes put
+    more blocks than SMs on an H100. The forward pass cuts every level's
+    window where the plain loop does."""
     pa, pb, pts, start, lvls, active, packed, wmask = _track_case(cuda_device, F=F)
     dims = t_tf._static_dims(pb)
     before = t_newton.KERNEL.launches
@@ -384,3 +387,80 @@ def test_probe_pyramid_kernels_on_partial_tiles(cuda_device, shape):
     for got, want in zip(pp.two_level(img, k), pp.two_level_plain(img, k)):
         assert got.shape == want.shape
         assert float((got - want).abs().max()) <= 1e-5
+
+
+def _loop_frame(dev):
+    """A frame of the SLAM loop's world at its shape (120x160), the camera
+    turned to the landmarks."""
+    import math
+
+    from slam_robot_tpu_torch import SlamConfig
+    from slam_robot_tpu_torch.models import renderer, sim, vehicle
+    from slam_robot_tpu_torch.run_sim import SLAM_LOOP
+    from slam_robot_tpu_torch.utils import synthetic
+
+    cfg = SlamConfig(**SLAM_LOOP)
+    world = sim.make_world(400, seed=0, device=dev)
+    q, t = sim.camera_pose(vehicle.init_state(heading=math.pi / 2, device=dev))
+    k = torch.as_tensor(synthetic.reference_intrinsics(cfg), device=dev)
+    return renderer.render(q, t, k, world.points, world.brightness, 120, 160)
+
+
+@pytest.mark.cuda
+def test_pyramid_flat_at_the_slam_loop_shape_on_card(cuda_device):
+    """run_sim --slam's pyramid: 120x160 at depth 4, launch 1 for levels
+    0-2 and launch 2 for the 15x20 level."""
+    grey = _loop_frame(cuda_device)
+    before = t_blur.PYRAMID.launches
+    got = t_blur.pyramid_flat(grey, 4)
+    want = t_blur.pyramid_flat_plain(grey, 4)
+    assert t_blur.PYRAMID.launches == before + 2
+    assert got.shape == want.shape == (4, 136, 176)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got[want == 0], want[want == 0])
+
+
+@pytest.mark.cuda
+def test_fleet_on_card_matches_cpu_without_a_host_read(cuda_device):
+    """sim.rollout's loop reads nothing back (a sync raises in this mode);
+    the card's fleet summary within the CPU's: reached count within 1 goal,
+    median final distance within 0.01 m."""
+    from slam_robot_tpu_torch.models import sim
+    from slam_robot_tpu_torch.run_sim import goal_batch
+
+    goals = torch.as_tensor(goal_batch(16))
+    on_card = goals.to(cuda_device)
+    sim.rollout(on_card, n_steps=1)  # makes the planner's per-device constant
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        traj, dist = sim.rollout(on_card, n_steps=300)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = sim.rollout(goals, n_steps=300)[1].numpy()
+    got = dist.cpu().numpy()
+    assert traj.shape == (16, 300, 2) and np.isfinite(got).all()
+    assert abs(int((got < 0.5).sum()) - int((want < 0.5).sum())) <= 1
+    assert abs(float(np.median(got)) - float(np.median(want))) <= 0.01
+
+
+@pytest.mark.cuda
+def test_slam_loop_launch_gates_on_card(cuda_device):
+    """Three steps of rollout_slam at run_sim's config: two pyramid_flat
+    launches a frame, two newton_track launches a sweep, no sep5."""
+    from slam_robot_tpu_torch import SlamConfig
+    from slam_robot_tpu_torch.models import sim
+    from slam_robot_tpu_torch.run_sim import SLAM_LOOP
+    from slam_robot_tpu_torch.utils import synthetic
+
+    cfg = SlamConfig(**SLAM_LOOP)
+    k = synthetic.reference_intrinsics(cfg)
+    world = sim.make_world(400, seed=0, device=cuda_device)
+    pyr, sep, track, sweeps = (t_blur.PYRAMID.launches, t_blur.KERNEL.launches,
+                               t_newton.KERNEL.launches, t_tf.SWEEPS.n)
+    traj, est, dist = sim.rollout_slam([3.0, 2.0, 0.0], world, cfg, [k, k], n_steps=3)
+    assert t_blur.PYRAMID.launches - pyr == 6 and t_blur.KERNEL.launches == sep
+    assert t_tf.SWEEPS.n > sweeps
+    assert t_newton.KERNEL.launches - track == 2 * (t_tf.SWEEPS.n - sweeps)
+    assert bool(torch.isfinite(traj).all() and torch.isfinite(est).all())
+    assert traj.device.type == "cuda" and np.isfinite(float(dist))
