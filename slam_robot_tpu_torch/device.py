@@ -57,6 +57,28 @@ class SyncCounter(Counter):
 SYNCS = SyncCounter()
 
 
+class Tally:
+    """Named counts, each a host int or a device tensor that grows without a
+    host read; :meth:`read` reads them all at once."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def add(self, name: str, n) -> None:
+        self.counts[name] = self.counts.get(name, 0) + n
+
+    def read(self) -> dict:
+        return {k: int(v) for k, v in self.counts.items()}
+
+    def reset(self) -> None:
+        self.counts = {}
+
+
+# what the step's off-by-default knobs did: lanes and sweeps they ran,
+# frames they moved or dropped (models/pipeline, models/matcher)
+KNOBS = Tally()
+
+
 def host(t: torch.Tensor):
     """Read a (small) tensor on the host, counting the sync."""
     return SYNCS.read(t)

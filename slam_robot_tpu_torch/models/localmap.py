@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from slam_robot_tpu_torch.config import SlamConfig
-from slam_robot_tpu_torch.device import default_device, span
+from slam_robot_tpu_torch.device import default_device, host, span
 from slam_robot_tpu_torch.ops import epipolar as epi
 from slam_robot_tpu_torch.ops import projection as proj
 from slam_robot_tpu_torch.ops import quaternion as quat
@@ -338,6 +338,13 @@ def _ring_slots(state: MapState):
     return idx, ok, age
 
 
+def _ring_gather(state: MapState, field):
+    """A per-obs field over the ring slots [P, R] in storage order, with the
+    slots' validity and obs rows: (vals, ok, idx)."""
+    idx, ok, _age = _ring_slots(state)
+    return field[idx.clamp(min=0).long()], ok, idx
+
+
 def _refresh_flags_from(flags, good, pos, age, min_baseline: float = 50.0):
     """Flag-evidence core on pre-gathered ring data (see refresh_flags)."""
     n_good = torch.sum(good, dim=1)
@@ -415,6 +422,77 @@ def normalize(state: MapState, rescale: bool = False, baseline: float = 150.0) -
         frame_quat=torch.where(is_id, fast_qq, full_q),
         point_loc=torch.where(is_id, fast_loc, full_loc),
     )
+
+
+def estimate_motion(state: MapState, frame_idx):
+    """Constant-velocity pose prediction for the frame at ``frame_idx`` (the
+    intended LocalMap::EstimateMotion, declared at localmap.h:300 and never
+    implemented): the same physical camera's pose two frames ago advanced
+    by its displacement over its last stride (frames i-4 -> i-2). Before
+    frame 4 it is the plain copy of frame i-2. Returns (quat, trans)."""
+    i = torch.as_tensor(frame_idx, dtype=I32, device=state.device).reshape(1).long()
+    i2 = torch.clamp(i - 2, min=0)
+    i4 = torch.clamp(i - 4, min=0)
+    q2, t2 = state.frame_quat.index_select(0, i2)[0], state.frame_trans.index_select(0, i2)[0]
+    q4, t4 = state.frame_quat.index_select(0, i4)[0], state.frame_trans.index_select(0, i4)[0]
+    dq = quat.normalize(quat.multiply(q2, quat.conjugate(q4)))
+    pred_t = t2 + (t2 - t4)
+    pred_q = quat.normalize(quat.multiply(dq, q2))
+    ok = i[0] >= 4
+    return torch.where(ok, pred_q, q2), torch.where(ok, pred_t, t2)
+
+
+# ---------------------------------------------------------------------------
+# pop_frame / check_not_moving (localmap.cpp:158-187)
+# ---------------------------------------------------------------------------
+
+def pop_frame(state: MapState) -> MapState:
+    """Remove the newest frame and its observations (localmap.cpp:158-171).
+
+    Its observations are the obs table's tail and the newest entry of each
+    of their points' rings: the ring totals decrement and the slot that
+    held each row, (total - 1) % R, is cleared, so that a wrapped ring never
+    reads the removed row as its oldest. Rows whose point was evicted
+    (obs_point -1) touch no ring. Flags stay (evidence is clear-only)."""
+    has = state.n_frames > 0
+    last = torch.clamp(state.n_frames - 1, min=0)
+    start = state.frame_obs_start.index_select(0, last.reshape(1).long())[0]
+    O = state.obs_frame.shape[0]
+    P, R = state.point_obs.shape
+    rows = torch.arange(O, device=state.device)
+    removed = (rows >= start) & (rows < state.n_obs) & has
+    pts = torch.where(removed & (state.obs_point >= 0), state.obs_point,
+                      torch.full_like(state.obs_point, P))
+    slot = torch.remainder(state.point_obs_total[pts.clamp(max=P - 1).long()] - 1, R)
+    return state._replace(
+        n_frames=torch.where(has, last, state.n_frames),
+        n_obs=torch.where(has, start, state.n_obs),
+        obs_frame=torch.where(removed, torch.full_like(state.obs_frame, -1), state.obs_frame),
+        obs_point=torch.where(removed, torch.full_like(state.obs_point, -1), state.obs_point),
+        obs_err_valid=state.obs_err_valid & ~removed,
+        point_obs=scatter_set(state.point_obs, pts, -1, col=slot),
+        point_obs_total=scatter_set(state.point_obs_total, pts, -1, accumulate=True),
+    )
+
+
+def check_not_moving(state: MapState, d2_threshold: float = 5.0) -> MapState:
+    """Drop the newest two frames when the motion is negligible
+    (localmap.cpp:173-187): at least 4 frames, d1^2 + d2^2 <= threshold
+    and neither of the two a keyframe. One host read decides."""
+    n = state.n_frames
+    i = torch.clamp(n, min=4).reshape(1).long()
+    pos = state.frame_trans
+
+    def at(a, back):
+        return a.index_select(0, i - back)[0]
+
+    d1 = torch.linalg.norm(at(pos, 1) - at(pos, 3))
+    d2 = torch.linalg.norm(at(pos, 2) - at(pos, 4))
+    idle = (d1 * d1 + d2 * d2) <= d2_threshold
+    kf = at(state.frame_keyframe, 1) | at(state.frame_keyframe, 2)
+    if host((n >= 4) & idle & ~kf):
+        state = pop_frame(pop_frame(state))
+    return state
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ add a frame with the pose init rules (main.cpp:540-552); matcher.track; the
 fast (2,5) window BA -> reproject -> clean; the slow (10,20) window on the
 first 10 frames and every 5th; the xslow (16,32) tier every 24th; the
 epipolar constraint; reproject -> normalize -> reproject with the
-invariance canary.
+invariance canary. With ``motion_model="constant_velocity"`` frames from 2
+on start from ``localmap.estimate_motion``; with ``drop_idle_frames`` the
+step ends by dropping its newest two frames when they did not move
+(``localmap.check_not_moving``).
 
 The JAX package's ``lax.cond``s become Python ``if``s on host reads, whose
 count per frame ``device.SYNCS`` records.
@@ -24,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from slam_robot_tpu_torch.config import SlamConfig
-from slam_robot_tpu_torch.device import default_device, host, span
+from slam_robot_tpu_torch.device import KNOBS, default_device, host, span
 from slam_robot_tpu_torch.models import localmap as lm
 from slam_robot_tpu_torch.models import matcher as matcher_mod
 from slam_robot_tpu_torch.models import slam
@@ -141,6 +144,11 @@ def _slam(m: lm.MapState, frame_idx: int, cfg: SlamConfig):
         canary = lm.normalize_canary(m, cfg.normalize_canary_rows, cfg.cheirality_eps)
     else:
         canary = torch.zeros((), dtype=F32, device=dev)
+    if cfg.drop_idle_frames:
+        # the reference declares CheckNotMoving but never calls it
+        n0 = m.n_frames
+        m = lm.check_not_moving(m, cfg.not_moving_d2)
+        KNOBS.add("popped_frames", n0 - m.n_frames)
 
     # rows of presented frames older than the reproject tail keep stale
     # errors: count them
@@ -169,6 +177,10 @@ def step(ps: PipelineState, img: torch.Tensor, cfg: SlamConfig, run_slam: bool =
     elif frame_idx == 1:
         init_q = m.frame_quat[0]
         init_t = torch.tensor([cfg.baseline_mm, 0.0, 0.0], dtype=F32, device=dev)
+    elif cfg.motion_model == "constant_velocity":
+        init_q, init_t = lm.estimate_motion(m, frame_idx)
+        if frame_idx >= 4:
+            KNOBS.add("constant_velocity", 1)
     else:
         init_q = m.frame_quat[frame_idx - 2]
         init_t = m.frame_trans[frame_idx - 2]

@@ -1,5 +1,7 @@
-"""The Mosaic probes of the JAX package's ``tools/`` on the port's
-hand-written CUDA kernels.
+"""The port's tools: ``parity`` (the parity replay of the JAX package's
+``tools/parity.py``), ``parity_nudges`` (is a drift on the card chaos?),
+and the Mosaic probes of the JAX package's ``tools/`` on the port's
+hand-written CUDA kernels, documented below.
 
 One module per probe script, with the script's name: ``probe_mosaic``,
 ``probe_mosaic2``, ``probe_mosaic3``, ``probe_mosaic4``,

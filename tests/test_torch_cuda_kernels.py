@@ -166,10 +166,11 @@ def _texture(rng, h, w):
     return (img - img.min()) / (img.max() - img.min())
 
 
-def _track_case(dev, F=37, h=120, w=160, depth=4):
+def _track_case(dev, F=37, h=120, w=160, depth=4, budgets=(2, 3, None)):
     """Two edge-padded pyramids of a texture and its shifted copy, the packed
-    references at the first's points, perturbed starts, mixed level counts,
-    some lanes inactive and some started by the border."""
+    references at the first's points, perturbed starts, mixed level counts
+    drawn from ``budgets`` (None: ``depth``), some lanes inactive and some
+    started by the border."""
     rng = np.random.default_rng(8)
     img = _texture(rng, h, w + 4)
     pa = t_pyr.build_pyramid(torch.as_tensor(img[:, :w], device=dev), depth)
@@ -178,7 +179,8 @@ def _track_case(dev, F=37, h=120, w=160, depth=4):
     pts = torch.as_tensor(pts, device=dev)
     packed = t_tf.pack_stacks(t_tf.get_patch_stacks(pa, pts))
     start = pts + torch.as_tensor(rng.uniform(-4, 1, (F, 2)).astype(np.float32), device=dev)
-    lvls = torch.as_tensor(rng.choice([2, 3, depth], F).astype(np.int32), device=dev)
+    budgets = [depth if b is None else b for b in budgets]
+    lvls = torch.as_tensor(rng.choice(budgets, F).astype(np.int32), device=dev)
     active = torch.as_tensor(rng.uniform(size=F) > 0.15, device=dev)
     wmask = t_patch.radial_mask(13, device=dev)
     return pa, pb, pts, start, lvls, active, packed, wmask
@@ -215,7 +217,19 @@ def test_newton_track_matches_plain_on_card(cuda_device, F):
     the SLAM loop's (run_sim --slam: 120x160, 4 levels), F=260 lanes put
     more blocks than SMs on an H100. The forward pass cuts every level's
     window where the plain loop does."""
-    pa, pb, pts, start, lvls, active, packed, wmask = _track_case(cuda_device, F=F)
+    _check_newton_track(cuda_device, F)
+
+
+@pytest.mark.cuda
+def test_newton_track_one_level_lanes_match_plain_on_card(cuda_device):
+    """Lanes at a budget of one level both ways (adaptive_fwd_px's first
+    attempt) mixed with budgets 3 and 4 in one launch."""
+    _check_newton_track(cuda_device, 96, budgets=(1, 3, None))
+
+
+def _check_newton_track(cuda_device, F, budgets=(2, 3, None)):
+    pa, pb, pts, start, lvls, active, packed, wmask = _track_case(cuda_device, F=F,
+                                                                  budgets=budgets)
     dims = t_tf._static_dims(pb)
     before = t_newton.KERNEL.launches
     pos, ok, stack, orgs = t_newton.newton_track(
@@ -259,6 +273,32 @@ def test_newton_track_view_ring_offsets_on_card(cuda_device):
     want = t_newton.newton_track_plain(start, lvls, active, t_tf._extract_packed(pa, pts, 13),
                                        wmask, dims, planes=pb.data)
     _assert_track_close(got, want, 160, 120)
+
+
+@pytest.mark.cuda
+def test_newton_track_reference_exact_mode_at_the_parity_shape_on_card(cuda_device):
+    """tools/parity's sequences (240x320, depth 5, F=192, reference-exact):
+    the forward pass with no backward stack, then the backward pass on a
+    four-view ring through per-lane plane offsets with references extracted
+    at the forward positions and no window cache; budgets 1, 3 and 5."""
+    F, depth = 192, 5
+    pa, pb, pts, start, lvls, active, packed, wmask = _track_case(
+        cuda_device, F=F, h=240, w=320, depth=depth, budgets=(1, 3, None))
+    dims = t_tf._static_dims(pb)
+    got = t_newton.newton_track(start, lvls, active, packed, wmask, dims, planes=pb.data)
+    want = t_newton.newton_track_plain(start, lvls, active, packed, wmask, dims,
+                                       planes=pb.data)
+    _assert_track_close(got, want, 320, 240)
+    pos, ok = got
+    assert bool(ok.any())
+    ring = torch.cat([pa.data, pb.data, pa.data.flip(-1), pb.data.flip(-2)])
+    off = torch.as_tensor(np.random.default_rng(3).integers(0, 4, F) * depth,
+                          device=cuda_device)
+    bwd = (pts, lvls, ok, t_tf._extract_packed(pb, pos, 13), wmask, dims)
+    got_b = t_newton.newton_track(*bwd, planes=ring, offset=off)
+    want_b = t_newton.newton_track_plain(*bwd, planes=ring, offset=off)
+    _assert_track_close(got_b, want_b, 320, 240)
+    assert bool(got_b[1].any())
 
 
 @pytest.mark.cuda
@@ -416,6 +456,20 @@ def test_pyramid_flat_at_the_slam_loop_shape_on_card(cuda_device):
     want = t_blur.pyramid_flat_plain(grey, 4)
     assert t_blur.PYRAMID.launches == before + 2
     assert got.shape == want.shape == (4, 136, 176)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(got[want == 0], want[want == 0])
+
+
+@pytest.mark.cuda
+def test_pyramid_flat_at_the_parity_shape_on_card(cuda_device):
+    """tools/parity's pyramid: 240x320 at depth 5, every element."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    grey = torch.rand((240, 320), generator=gen, device=cuda_device)
+    before = t_blur.PYRAMID.launches
+    got = t_blur.pyramid_flat(grey, 5)
+    want = t_blur.pyramid_flat_plain(grey, 5)
+    assert t_blur.PYRAMID.launches == before + t_blur.pyramid_plan(240, 320, 5)["launches"]
+    assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-5
     assert torch.equal(got[want == 0], want[want == 0])
 

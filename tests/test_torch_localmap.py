@@ -182,15 +182,18 @@ def test_refresh_flags_and_recent_obs_match():
 def test_unported_knobs_raise():
     import pytest
 
-    from slam_robot_tpu_torch.models import pipeline
+    from slam_robot_tpu_torch.models import matcher, pipeline
     from slam_robot_tpu_torch.ops.cuda import newton
 
-    for kw in ({"tracker_impl": "lanes"}, {"tracker_kind": "klt"}, {"retry_mode": "cycle"},
-               {"mid_frame_resolve": True}, {"motion_model": "constant_velocity"},
-               {"drop_idle_frames": True}, {"clean_duplicates": True},
-               {"adaptive_fwd_px": 2.0}, {"seed_depth_adaptive": True}):
+    # only the alternative trackers are left; every other knob runs
+    assert set(matcher.UNPORTED) == {"tracker_impl", "tracker_kind"}
+    for kw in ({"tracker_impl": "lanes"}, {"tracker_kind": "klt"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pipeline.init(dataclasses.replace(TCFG, **kw), device="cpu")
+    pipeline.init(dataclasses.replace(
+        TCFG, retry_mode="cycle", mid_frame_resolve=True, motion_model="constant_velocity",
+        drop_idle_frames=True, clean_duplicates=True, adaptive_fwd_px=2.0,
+        seed_depth_adaptive=True), device="cpu")
     # newton_level's group is ported; the JAX function's preconditions stay
     win = torch.zeros((6, 32, 32))
     with pytest.raises(ValueError, match="group"):
