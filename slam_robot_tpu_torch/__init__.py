@@ -7,11 +7,15 @@ mirrors ``slam_robot_tpu``:
 
 - ``config``    ``SlamConfig``, this package's own copy of the JAX package's
 - ``ops``       geometry, pyramids, patches, the fused tracker, corners, BA
+                (the dense window solver and the large-map CG one)
 - ``ops/cuda``  kernel wrappers (counterpart of ``ops/pallas``) and the
                 ``nvcc`` build of ``csrc/*.cu``
 - ``models``    map state, matcher, BA windows, the pipeline step, renderer
+- ``parallel``  meshes and the observation-shard seam, sharded BA, rollout
+                fleets, multi-robot maps, the gloo dry run
+- ``tools``     the parity replay, the probes, calibrate, the bench suite
 - ``io``        frame sources and the recorder
-- ``utils``     intrinsics, the bench scene, map dumps and trajectory
+- ``utils``     synthetic scenes, the bench scene, map dumps and trajectory
                 errors, metrics, debug drawing, checkpoints
 - ``bridge``    conversion of JAX-package states (as numpy) to and from
                 this package's tensors

@@ -183,6 +183,12 @@ def set_camera(state: MapState, idx: int, k) -> MapState:
     return state._replace(cam_k=cam_k, cam_k_init=cam_k_init)
 
 
+def reset_cameras(state: MapState) -> MapState:
+    """LocalMap::Reset of every camera: k back to its initial value
+    (localmap.h:32-36), as before a SolveCameras run."""
+    return state._replace(cam_k=state.cam_k_init)
+
+
 def add_frame(state: MapState, cam_idx, q=None, t=None):
     """Append a frame (localmap.cpp:93-99). Returns (state, frame_idx)."""
     i = state.n_frames

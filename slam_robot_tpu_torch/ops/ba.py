@@ -26,6 +26,7 @@ from torch.func import jacfwd, vmap
 from slam_robot_tpu_torch.device import host, span
 from slam_robot_tpu_torch.ops import projection as proj
 from slam_robot_tpu_torch.ops import quaternion as quat
+from slam_robot_tpu_torch.ops.obs_shards import ObsShards
 
 F32 = torch.float32
 I32 = torch.int32
@@ -162,13 +163,27 @@ def _block_diag(blocks):
     return torch.einsum("cd,cab->cadb", eye, blocks).reshape(C * n, C * n)
 
 
-@span("ba_solve")
 def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertainty,
           obs_frame, obs_point, obs_px, obs_ok, present, free_frame,
           cfg: BAConfig = BAConfig()) -> BAResult:
     """Windowed BA over the given tables (shapes as the JAX package's
     ``ops/ba.solve``). Returns a :class:`BAResult`."""
-    dev = frame_quat.device
+    return solve_shards(frame_quat, frame_trans, frame_cam, cam_k, point_loc,
+                        point_uncertainty, ObsShards.whole(obs_frame, obs_point, obs_px, obs_ok),
+                        present, free_frame, cfg)
+
+
+@span("ba_solve")
+def solve_shards(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertainty,
+                 shards: ObsShards, present, free_frame,
+                 cfg: BAConfig = BAConfig()) -> BAResult:
+    """:func:`solve` with the observation table in ``shards``: every sum
+    over observations (the structure counts, the cost, the normal
+    equations' blocks) goes through ``shards.sum``; frame, point and camera
+    state lives on ``shards.home`` and every shard's solve is the same.
+    With one shard and no process group this is :func:`solve`, bit for
+    bit."""
+    dev = shards.home
     Fn = frame_quat.shape[0]
     P = point_loc.shape[0]
     C = cam_k.shape[0]
@@ -178,19 +193,28 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
     DK = 7 * C if cams else 0
     ar_f = torch.arange(Fn, device=dev)
 
-    f_idx = obs_frame.clamp(min=0).long()
-    p_idx = obs_point.clamp(min=0).long()
-    c_idx = frame_cam[f_idx].long()
+    # per shard: its rows' frame, point and camera indices, on its device
+    sh = []
+    for t in shards.tables:
+        f_idx = t["obs_frame"].clamp(min=0).long()
+        sh.append(dict(f_idx=f_idx, p_idx=t["obs_point"].clamp(min=0).long(),
+                       c_idx=frame_cam.to(f_idx.device)[f_idx].long(),
+                       px=t["obs_px"], ok=t["obs_ok"]))
+
+    def on(x, s):
+        return x.to(s["f_idx"].device)
 
     # ---- structure masks (slam.cpp:267-308, 344-354) ----
-    fsent = torch.full_like(f_idx, Fn)
-    psent = torch.full_like(p_idx, P)
-    frame_has_obs = _count_into(torch.where(obs_ok, f_idx, fsent), Fn) > 0
+    frame_has_obs = shards.sum(lambda s: _count_into(
+        torch.where(s["ok"], s["f_idx"], torch.full_like(s["f_idx"], Fn)), Fn), sh) > 0
     n_used = torch.sum((present & frame_has_obs), dtype=I32)
     solvable = n_used >= 2
     free_f = free_frame & frame_has_obs & solvable
-    point_in = _count_into(torch.where(obs_ok, p_idx, psent), P) > 0
-    fluid = _count_into(torch.where(obs_ok & free_f[f_idx], p_idx, psent), P) > 0
+    point_in = shards.sum(lambda s: _count_into(
+        torch.where(s["ok"], s["p_idx"], torch.full_like(s["p_idx"], P)), P), sh) > 0
+    fluid = shards.sum(lambda s: _count_into(
+        torch.where(s["ok"] & on(free_f, s)[s["f_idx"]], s["p_idx"],
+                    torch.full_like(s["p_idx"], P)), P), sh) > 0
     free_p = point_in & (fluid | (point_uncertainty > cfg.uncertainty_free)) & solvable
 
     if cfg.max_free_points and cfg.max_free_points < P:
@@ -199,19 +223,22 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
         rank = torch.flip(torch.cumsum(torch.flip(free_p.to(I32), [0]), 0), [0]) - 1
         free_p = free_p & (rank < PW)
         pslot_of = torch.where(free_p, rank, torch.full_like(rank, PW)).to(I32)
-        obs_pc = pslot_of[p_idx]
+        for s in sh:
+            s["pc"] = on(pslot_of, s)[s["p_idx"]]
         merge_p = _one_hot(pslot_of, PW)                       # [P, PW]
         free_pc = torch.arange(PW, device=dev) < torch.sum(free_p, dtype=I32)
     else:
         PW = P
-        obs_pc = p_idx
+        for s in sh:
+            s["pc"] = s["p_idx"]
         merge_p = None
         free_pc = free_p
 
     fi = free_f.to(I32)
     slot_of = torch.where(free_f, torch.cumsum(fi, 0).to(I32) - 1,
                           torch.full_like(fi, W)).clamp(max=W)
-    obs_slot = slot_of[f_idx]
+    for s in sh:
+        s["slot"] = on(slot_of, s)[s["f_idx"]]
 
     prev_present = torch.roll(present, 1)
     prev_present = torch.cat([torch.zeros_like(prev_present[:1]), prev_present[1:]])
@@ -219,20 +246,25 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
 
     eps_c = cfg.cheirality_eps
 
-    def obs_residuals(fq, ft, ks, locs):
-        r, valid = proj.reprojection_error(fq[f_idx], ft[f_idx], ks[c_idx],
-                                           locs[p_idx], obs_px, eps_c)
-        use = obs_ok & valid & torch.all(torch.isfinite(r), dim=-1)
+    def obs_residuals(s, fq, ft, ks, locs):
+        f_idx, p_idx = s["f_idx"], s["p_idx"]
+        r, valid = proj.reprojection_error(on(fq, s)[f_idx], on(ft, s)[f_idx],
+                                           on(ks, s)[s["c_idx"]], on(locs, s)[p_idx],
+                                           s["px"], eps_c)
+        use = s["ok"] & valid & torch.all(torch.isfinite(r), dim=-1)
         return torch.where(use[:, None], r, torch.zeros_like(r)), use
 
     stab = vmap(lambda k: _stab_residual(k, cfg))
     stab_jac = vmap(jacfwd(lambda k: _stab_residual(k, cfg)))
 
+    def obs_cost(s, fq, ft, ks, locs):
+        r, use = obs_residuals(s, fq, ft, ks, locs)
+        ssq = torch.sum(r * r, dim=-1)
+        rho = _cauchy_rho(ssq, cfg.range)
+        return torch.sum(torch.where(use, rho, torch.zeros_like(rho)))
+
     def total_cost(fq, ft, ks, locs):
-        r, use = obs_residuals(fq, ft, ks, locs)
-        s = torch.sum(r * r, dim=-1)
-        rho = _cauchy_rho(s, cfg.range)
-        cost = torch.sum(torch.where(use, rho, torch.zeros_like(rho)))
+        cost = shards.sum(lambda s: obs_cost(s, fq, ft, ks, locs), sh)
         d = torch.linalg.norm(ft - torch.roll(ft, 1, dims=0), dim=-1)
         rp = cfg.frame_dist_weight * (d - cfg.baseline)
         rho_p = _cauchy_rho(rp * rp, cfg.frame_dist_loss)
@@ -247,8 +279,11 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
         return r
 
     jac_fn = vmap(jacfwd(res_params, argnums=(0, 1, 2, 3) if cams else (0, 1, 2)))
-    ohs = _one_hot(obs_slot, W)                                  # [O, W]
-    ohp = _one_hot(obs_pc, PW)                                   # [O, PW]
+    for s in sh:
+        s["ohs"] = _one_hot(s["slot"], W)                        # [O, W]
+        s["ohp"] = _one_hot(s["pc"], PW)                         # [O, PW]
+        if cams:
+            s["ohc"] = _one_hot(s["c_idx"], C)                   # [O, C]
     eyeW = torch.eye(W, dtype=F32, device=dev)
 
     slot_prev = torch.roll(slot_of, 1)
@@ -256,29 +291,51 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
     oh_f = _one_hot(torch.where(prior_f, slot_of, torch.full_like(slot_of, W)), W)
     oh_prev = _one_hot(torch.where(prior_f, slot_prev, torch.full_like(slot_prev, W)), W)
 
-    def build_normal(fq, ft, ks, locs):
-        """Every lambda-independent block at the current state."""
-        r, use = obs_residuals(fq, ft, ks, locs)
-        s = torch.sum(r * r, dim=-1)
-        w = torch.where(use, _cauchy_weight(s, cfg.range), torch.zeros_like(s))
+    def obs_blocks(s, fq, ft, ks, locs):
+        """One shard's sums of the observation blocks: point rows [PW,5,5]
+        (residual column first), frame rows [W,7,7], the frame-point
+        coupling [PW,W,6,4], and with the cameras their four blocks."""
+        f_idx, p_idx = s["f_idx"], s["p_idx"]
+        r, use = obs_residuals(s, fq, ft, ks, locs)
+        ssq = torch.sum(r * r, dim=-1)
+        w = torch.where(use, _cauchy_weight(ssq, cfg.range), torch.zeros_like(ssq))
         O = f_idx.shape[0]
-        jac = jac_fn(torch.zeros((O, 3), dtype=F32, device=dev), ft[f_idx],
-                     locs[p_idx], ks[c_idx], fq[f_idx], obs_px)
+        sdev = f_idx.device
+        jac = jac_fn(torch.zeros((O, 3), dtype=F32, device=sdev), on(ft, s)[f_idx],
+                     on(locs, s)[p_idx], on(ks, s)[s["c_idx"]], on(fq, s)[f_idx], s["px"])
         jxi, jt, jp = jac[:3]
         jf = torch.cat([jxi, jt], dim=-1)
-        jf = jf * (use & (obs_slot < W))[:, None, None].to(F32)
-        jp = jp * (use & free_p[p_idx])[:, None, None].to(F32)
+        jf = jf * (use & (s["slot"] < W))[:, None, None].to(F32)
+        jp = jp * (use & on(free_p, s)[p_idx])[:, None, None].to(F32)
         jaug = torch.cat([jf, r[:, :, None], jp], dim=-1)         # [O,2,11]
         blk = torch.einsum("oia,oib,o->oab", jaug, jaug, w)
-
+        ohs, ohp = s["ohs"], s["ohp"]
         mp = torch.einsum("op,oab->pab", ohp, blk[:, 6:, 6:])
-        Cp = mp[:, 1:, 1:]
-        bp = -mp[:, 1:, 0]
         mf = torch.einsum("ow,oab->wab", ohs, blk[:, :7, :7])
-        Hff = mf[:, :6, :6].clone()
-        bf = -mf[:, :6, 6]
         A = torch.einsum("op,owab->pwab", ohp,
                          torch.einsum("ow,oab->owab", ohs, blk[:, :6, 7:]))
+        if not cams:
+            return mp, mf, A
+        # camera columns: coupling with frames and points
+        jk = jac[3] * use[:, None, None].to(F32)                  # [O,2,7]
+        rm = torch.where(use[:, None], r, torch.zeros_like(r))
+        ohc = s["ohc"]
+        Hkk = torch.einsum("oc,oab->cab", ohc, torch.einsum("oia,oib,o->oab", jk, jk, w))
+        bk = -torch.einsum("oc,oia,oi->ca", ohc, jk, w[:, None] * rm)
+        Hfk = torch.einsum("oc,owab->wcab", ohc, torch.einsum(
+            "ow,oab->owab", ohs, torch.einsum("oia,oib,o->oab", jf, jk, w)))
+        Ak = torch.einsum("op,ocab->pcab", ohp, torch.einsum(
+            "oc,oab->ocab", ohc, torch.einsum("oia,oib,o->oab", jk, jp, w)))
+        return mp, mf, A, Hkk, bk, Hfk, Ak
+
+    def build_normal(fq, ft, ks, locs):
+        """Every lambda-independent block at the current state."""
+        sums = shards.sum(lambda s: obs_blocks(s, fq, ft, ks, locs), sh)
+        mp, mf, A = sums[:3]
+        Cp = mp[:, 1:, 1:]
+        bp = -mp[:, 1:, 0]
+        Hff = mf[:, :6, :6].clone()
+        bf = -mf[:, :6, 6]
 
         tprev = torch.roll(ft, 1, dims=0)
         dvec = ft - tprev
@@ -301,17 +358,8 @@ def solve(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_uncertaint
         if not cams:
             return Cp, bp, Hff, bf, A, T, None
 
-        # camera columns: coupling with frames and points, plus the
-        # stabilization residuals
-        jk = jac[3] * use[:, None, None].to(F32)                  # [O,2,7]
-        rm = torch.where(use[:, None], r, torch.zeros_like(r))
-        ohc = _one_hot(c_idx, C)                                   # [O,C]
-        Hkk = torch.einsum("oc,oab->cab", ohc, torch.einsum("oia,oib,o->oab", jk, jk, w))
-        bk = -torch.einsum("oc,oia,oi->ca", ohc, jk, w[:, None] * rm)
-        Hfk = torch.einsum("oc,owab->wcab", ohc, torch.einsum(
-            "ow,oab->owab", ohs, torch.einsum("oia,oib,o->oab", jf, jk, w)))
-        Ak = torch.einsum("op,ocab->pcab", ohp, torch.einsum(
-            "oc,oab->ocab", ohc, torch.einsum("oia,oib,o->oab", jk, jp, w)))
+        # the cameras' stabilization residuals
+        Hkk, bk, Hfk, Ak = sums[3:]
         js = stab_jac(ks)                                          # [C,7,7]
         rs = stab(ks)
         ws = _cauchy_weight(torch.sum(rs * rs, dim=-1), cfg.camera_loss)

@@ -1,2 +1,3 @@
-"""Device meshes and data-parallel rollout fleets (port of
-``slam_robot_tpu/parallel``'s ``mesh`` and ``rollouts``)."""
+"""Meshes and the observation-shard seam, sharded bundle adjustment,
+rollout fleets, multi-robot shared maps and the multi-process dry run
+(port of ``slam_robot_tpu/parallel``)."""

@@ -1,9 +1,13 @@
 """Mesh helpers: a named grid of devices.
 
 Port of ``slam_robot_tpu/parallel/mesh.py``'s ``make_mesh``. A ``Mesh`` is a
-numpy grid of ``torch.device``s with axis names; it starts no process group
-(the ``torch.distributed`` form belongs with the sharded BA and multi-robot
-paths).
+numpy grid of ``torch.device``s with axis names; it starts no process group.
+A mesh may name one device more than once: ``make_mesh({"model": 4},
+devices=["cuda"] * 4)`` lays four shards on one card.
+
+The observation-table seam of the bundle adjusters, :class:`ObsShards`
+(the JAX package's ``psum`` over a mesh axis), lives with them in
+``ops/obs_shards`` and is re-exported here.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from slam_robot_tpu_torch.device import default_device
+from slam_robot_tpu_torch.ops.obs_shards import OBS_PAD, ObsShards  # noqa: F401
 
 
 class Mesh(NamedTuple):

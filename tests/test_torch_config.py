@@ -9,6 +9,7 @@ boundary, and its default device.
   ``slam_robot_tpu.*`` module.
 - With no device given, the entry points mean the CUDA card: where torch
   sees none (as here) they raise instead of building CPU tensors.
+- A mesh may name one device more than once (shards that share a card).
 
 :func:`port_cfg` is how the port's tests hand a JAX-package config to the
 port.
@@ -74,7 +75,9 @@ def test_port_modules_import_nothing_of_the_jax_package():
         "assert not bad, bad\n"
         "for want in ('run_replay', 'tools.probe_newton_kernel', 'run_sim', 'stop',\n"
         "             'models.vehicle', 'models.planner', 'models.sim', 'parallel.mesh',\n"
-        "             'parallel.rollouts', 'io.usb'):\n"
+        "             'parallel.rollouts', 'io.usb', 'ops.ba_cg', 'parallel.sharded_ba',\n"
+        "             'parallel.multi_robot', 'parallel.dryrun', 'tools.calibrate',\n"
+        "             'tools.bench_suite', 'ops.obs_shards'):\n"
         "    assert 'slam_robot_tpu_torch.' + want in names, (want, names)\n"
         "print(len(names))\n"
     )
@@ -85,6 +88,24 @@ def test_port_modules_import_nothing_of_the_jax_package():
     assert int(res.stdout.strip()) >= 40
 
 
+def test_solver_layer_imports_nothing_of_the_parallel_layer():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "import slam_robot_tpu_torch.ops as ops\n"
+        "names = [m.name for m in pkgutil.walk_packages(ops.__path__, ops.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'slam_robot_tpu_torch.ops.ba_cg' in names, names\n"
+        "bad = sorted(m for m in sys.modules if m.startswith('slam_robot_tpu_torch.parallel'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=ROOT)
+    assert res.returncode == 0, res.stderr[-3000:]
+
+
 def test_entry_points_without_a_device_mean_the_card():
     if torch.cuda.is_available():
         pytest.skip("this test checks the refusal where torch sees no CUDA device")
@@ -92,7 +113,8 @@ def test_entry_points_without_a_device_mean_the_card():
     from slam_robot_tpu_torch.models import (localmap, matcher, pipeline, planner, renderer, sim,
                                             vehicle)
     from slam_robot_tpu_torch.parallel import mesh
-    from slam_robot_tpu_torch.utils import benchscene
+    from slam_robot_tpu_torch.tools import bench_suite, calibrate
+    from slam_robot_tpu_torch.utils import benchscene, synthetic
 
     cfg = SlamConfig(image_width=160, image_height=120, pyramid_depth=4,
                      max_features=64, max_points=128, max_obs=1024)
@@ -106,7 +128,11 @@ def test_entry_points_without_a_device_mean_the_card():
                  lambda: planner.shortest_path([0.0, 0.0], 0.0, [4.0, 3.0], 0.0),
                  lambda: planner.all_paths([0.0, 0.0], 0.0, [4.0, 3.0], 0.0),
                  lambda: planner.interpolate_path([0.0, 0.0], 0.0, path),
-                 lambda: planner.path_endpoint([0.0, 0.0], 0.0, path)):
+                 lambda: planner.path_endpoint([0.0, 0.0], 0.0, path),
+                 lambda: synthetic.build_scene(cfg), lambda: synthetic.make_trajectory(4, cfg),
+                 lambda: synthetic.build_large_problem(10, 100, 4),
+                 lambda: calibrate.main(["--synthetic", "2"]),
+                 lambda: bench_suite.main(["--configs", "5", "--small"])):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert default_device("cpu") == torch.device("cpu")
@@ -123,3 +149,15 @@ def test_replay_cli_without_a_device_refuses_the_cpu():
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr and '"frames"' not in res.stdout
+
+
+def test_make_mesh_takes_a_repeated_device():
+    from slam_robot_tpu_torch.parallel import mesh
+
+    m = mesh.make_mesh({"model": 4}, devices=["cpu"] * 4)
+    assert m.shape == {"model": 4}
+    assert m.axis_devices("model") == [torch.device("cpu")] * 4
+    grid = mesh.make_mesh({"data": 2, "model": 2}, devices=["cpu"] * 4)
+    assert grid.shape == {"data": 2, "model": 2}
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        mesh.make_mesh({"model": 4}, devices=["cpu"] * 3)
