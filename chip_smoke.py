@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's SLAM step, replay driver, closed loop and
-benchmark suite on one CUDA card and check them.
+"""Drive the PyTorch port's SLAM step, replay driver, closed loop,
+benchmark suite, alternative trackers, host I/O and live view on one CUDA
+card and check them.
 
 Run from the repository root:
 
@@ -115,14 +116,33 @@ Phases, one line each (phases 2 and 3 several):
      frames; the multi-robot map at R = 8 lowering its mean point error),
      then tools/calibrate --synthetic 20 at 640x480 (phase 4's launch gates,
      finite solved k, reprojection error below its value before the solve)
+ 12. the alternative trackers, host I/O and the live view: (a) the step
+     with tracker_impl="lanes" and (b) with tracker_kind="klt" at
+     SlamConfig()'s widths over the sweep's frames 0-63 (two pyramid_flat
+     launches a frame, no newton_track; phase 4's gates, at least 500 and
+     200 points); (c) from (a)'s state after frame 16, matcher.track for
+     frame 17 with each on the card and on the host's CPU (matched masks
+     agree on 98 % of candidate lanes, positions of lanes matched on both
+     within 2e-3 px on 95 %), each tracker's CUDA-graph pass equal to its
+     eager pass bit for bit, and brute.track_feature on 256 lanes from
+     frame 0 to 2 (1e-4 px on 99 %, ok equal); (d) io/native's library on
+     the host (the YUYV conversions exact, the ring's rate, 16 frames fed
+     through native.FrameRing into the step equal bit for bit to phase 4's
+     state after them, V4L2Source on /dev/video0); (e) run_replay
+     --synthetic 16 --serve PORT --view-every 1, per frame and --live, with
+     a client reading /, /status, three /stream parts (480x640 JPEGs),
+     /points and /point?id=N while it runs and PIL out of reach, the
+     summaries as phase 6's synthetic run's, and the JPEG encoder's time a
+     640x480 overlay
 
 The JSON line before the card's line holds the main path's, the replay
 runs', every probe case's, the closed loop's, the parity replays', the
-knobs' and the bench suite's figures. The line before
+knobs', the bench suite's and phase 12's figures. The line before
 the last is a JSON object with one entry per kernel entry point, its
-launches counted over phases 4, 6, 8, 9, 10 and 11 (pyramid_flat,
-newton_track: the main path, the replay driver, the SLAM loop, the parity
-replays, the knobs' run, bench_suite config 1 and calibrate), phase 7's mains
+launches counted over phases 4, 6 and 8-12 (pyramid_flat, newton_track:
+the main path, the replay driver, the SLAM loop, the parity replays, the
+knobs' run, bench_suite config 1 and calibrate, and phase 12's runs; no
+newton_track on phase 12's tracker runs), phase 7's mains
 (sep5_reflect101: probe2's reference runs pyramid.blur and pyr_down) or
 phase 7 (the probes' entry points); the last line is {"ok": true, "device":
 {...}}. Any failure raises, and the script exits non-zero without printing
@@ -160,6 +180,24 @@ LOOP_TIE = 1e-4
 STATES_APART_MAX = 0.02
 TIE_SHARE_MAX = 0.2
 EXEMPT_GOALS_MAX = 0.5
+
+# phase 12: the alternative trackers' sweep (the bench sweep's first
+# frames; the time may force 32), the state (c) starts from (after frame
+# 16), the frames fed through the native ring and served by the live view
+ALT_FRAMES = 64
+ALT_STATE_FRAME = 16
+RING_FRAMES = 16
+SERVE_FRAMES = 16
+# phase 12's gates: points at 64 (or 32) frames, lanes then KLT (the JAX
+# package on the CPU: 692 and 289 at 64 frames); the card against the
+# card host's CPU on one state (matched masks agree on 98 % of candidate
+# lanes, positions of lanes matched on both within 2e-3 px on 95 %; brute:
+# 1e-4 px on 99 %, ok equal)
+ALT_MIN_POINTS = {"lanes": {64: 500, 32: 250}, "klt": {64: 200, 32: 100}}
+ALT_MASK_AGREE = 0.98
+ALT_PX, ALT_PX_SHARE = 2e-3, 0.95
+BRUTE_PX, BRUTE_PX_SHARE = 1e-4, 0.99
+BRUTE_SAD = 2.0
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores (every kernel is float32 CUDA-core
@@ -784,18 +822,24 @@ def _check_counts(name: str, counts: dict, n_frames: int) -> None:
         raise AssertionError(f"{name}: newton_track launches {counts} != 2 per sweep")
 
 
-def phase_main(frames):
-    """Drive pipeline.step over ``frames``; returns (counts, summary, state)."""
+def _map_state(ps, fn):
+    """A (nested) state NamedTuple with ``fn`` applied to every tensor."""
+    return type(ps)(*(_map_state(v, fn) if isinstance(v, tuple) else fn(v) for v in ps))
+
+
+def _drive_sweep(cfg, frames, keep=()):
+    """pipeline.step and maybe_polish over ``frames`` from a fresh state on
+    the card, the kernel counts set to 0 first. Fails on a non-finite state
+    field. Returns (state, figures, {i: copy of the state after frame i for
+    i in keep})."""
     import numpy as np
     import torch
 
-    from slam_robot_tpu_torch import SlamConfig
     from slam_robot_tpu_torch.device import SYNCS
     from slam_robot_tpu_torch.models import pipeline
     from slam_robot_tpu_torch.utils.benchscene import sweep_pose
     from slam_robot_tpu_torch.utils.dump import ate_aligned
 
-    cfg = SlamConfig()
     ps = pipeline.init(cfg, device="cuda")
     torch.cuda.synchronize()
     _reset_counts()
@@ -804,6 +848,7 @@ def phase_main(frames):
     kfs = 0
     dropped = 0
     canary_max = 0.0
+    kept = {}
     n_frames = len(frames)
     for i in range(n_frames):
         t0 = time.perf_counter()
@@ -815,9 +860,10 @@ def phase_main(frames):
         dropped += int(met["fast_obs_dropped"] + met["slow_obs_dropped"]
                        + met["reproject_obs_dropped"])
         canary_max = max(canary_max, float(met["normalize_canary_px"]))
+        if i in keep:
+            kept[i] = _map_state(ps, lambda t: t.clone())
     counts = _read_counts()
     syncs = (SYNCS.n - sync0) / n_frames
-    _check_counts("main path", counts, n_frames)
     m = ps.map
     for name, t in list(m._asdict().items()) + list(ps.matcher._asdict().items()):
         if t.is_floating_point() and not bool(torch.isfinite(t).all()):
@@ -829,28 +875,49 @@ def phase_main(frames):
     path = float(np.linalg.norm(true_t[-1] - true_t[0]))
     ate_pct = 100.0 * ate_aligned(est_t, true_t) / max(path, 1e-9)
     tail = step_ms[-16:]
-    summary = {"frames": n_frames, "n_points": int(m.n_points), "live_points": n_live,
+    figures = {"frames": n_frames, "n_points": int(m.n_points), "live_points": n_live,
                "keyframes": kfs, "obs_dropped": dropped, "canary_max_px": canary_max,
                "ate_aligned_pct": ate_pct, "median_step_ms_last16": statistics.median(tail),
                "host_syncs_per_frame": syncs, "launches": counts,
                "launches_per_frame": {k: v / n_frames for k, v in counts.items()}}
-    print(f"phase 4 main path: {n_frames} frames, median step {summary['median_step_ms_last16']:.2f} "
-          f"ms over the last {len(tail)}, {syncs:.1f} host syncs/frame, launches {counts} "
-          f"({json.dumps(summary['launches_per_frame'])} per frame), "
-          f"n_points {summary['n_points']} (live {n_live}), keyframes {kfs}, dropped {dropped}, "
-          f"canary max {canary_max:.4f} px, Sim(3)-aligned ATE {ate_pct:.3f} % of path",
-          flush=True)
-    if summary["n_points"] <= 300:
-        raise AssertionError(f"map too small: n_points {summary['n_points']}")
-    if dropped:
-        raise AssertionError(f"{dropped} obs rows dropped by the fixed windows")
-    if not canary_max < 0.1:
-        raise AssertionError(f"normalize canary {canary_max} px >= 0.1")
-    if not ate_pct < 5.0:
-        raise AssertionError(f"aligned ATE {ate_pct:.2f} % of path >= 5 %")
-    if not math.isfinite(ate_pct):
-        raise AssertionError("ATE is not finite")
-    return counts, summary, ps
+    return ps, figures, kept
+
+
+def _sweep_line(f: dict) -> str:
+    return (f"{f['frames']} frames, median step {f['median_step_ms_last16']:.2f} ms over the "
+            f"last {min(16, f['frames'])}, {f['host_syncs_per_frame']:.1f} host syncs/frame, "
+            f"launches {f['launches']} ({json.dumps(f['launches_per_frame'])} per frame), "
+            f"n_points {f['n_points']} (live {f['live_points']}), keyframes {f['keyframes']}, "
+            f"dropped {f['obs_dropped']}, canary max {f['canary_max_px']:.4f} px, Sim(3)-aligned "
+            f"ATE {f['ate_aligned_pct']:.3f} % of path")
+
+
+def _gate_sweep(name: str, f: dict, min_points: int) -> None:
+    """Phase 4's gates on a sweep's figures: at least ``min_points`` points,
+    no row dropped, canary < 0.1 px, a finite aligned ATE < 5 % of path."""
+    if f["n_points"] < min_points:
+        raise AssertionError(f"{name}: map too small: n_points {f['n_points']} < {min_points}")
+    if f["obs_dropped"]:
+        raise AssertionError(f"{name}: {f['obs_dropped']} obs rows dropped by the fixed windows")
+    if not f["canary_max_px"] < 0.1:
+        raise AssertionError(f"{name}: normalize canary {f['canary_max_px']} px >= 0.1")
+    if not math.isfinite(f["ate_aligned_pct"]):
+        raise AssertionError(f"{name}: ATE is not finite")
+    if not f["ate_aligned_pct"] < 5.0:
+        raise AssertionError(f"{name}: aligned ATE {f['ate_aligned_pct']:.2f} % of path >= 5 %")
+
+
+def phase_main(frames):
+    """Drive pipeline.step over ``frames``; returns (counts, summary, state,
+    a copy of the state after the first RING_FRAMES frames)."""
+    from slam_robot_tpu_torch import SlamConfig
+
+    ps, summary, kept = _drive_sweep(SlamConfig(), frames, keep=(RING_FRAMES - 1,))
+    counts = summary["launches"]
+    _check_counts("main path", counts, len(frames))
+    print(f"phase 4 main path: {_sweep_line(summary)}", flush=True)
+    _gate_sweep("main path", summary, min_points=301)
+    return counts, summary, ps, kept[RING_FRAMES - 1]
 
 
 def phase_profile(ps, frames, start: int, out_dir: str, step_ms: float):
@@ -2240,6 +2307,417 @@ def phase_suite(card: str):
     return counts, summary, kern
 
 
+def _alt_track_pair(ps, frame, cfg) -> dict:
+    """One matcher.track for the frame after ``ps`` with ``cfg``'s tracker,
+    on the card and on the host's CPU from the same state: the matched masks
+    over the candidate lanes (live after the drop) and the positions of
+    lanes matched on both."""
+    import torch
+
+    from slam_robot_tpu_torch.models import localmap as lm
+    from slam_robot_tpu_torch.models import matcher
+
+    def run(state, img):
+        m = state.map
+        n = int(m.n_frames)
+        camera = state.camera ^ 1
+        m, fidx = lm.add_frame(m, camera, m.frame_quat[n - 2], m.frame_trans[n - 2])
+        t0 = time.perf_counter()
+        _, _, met = matcher.track(state.matcher, m, img, fidx, camera, cfg)
+        if img.is_cuda:
+            torch.cuda.synchronize()
+        return met, time.perf_counter() - t0
+
+    card, card_s = run(ps, frame)
+    cpu, cpu_s = run(_map_state(ps, lambda t: t.cpu()), frame.cpu())
+    cand = cpu["feat_point"] >= 0
+    if not torch.equal(card["feat_point"].cpu(), cpu["feat_point"]):
+        raise AssertionError("the card and the CPU dropped different lanes")
+    m_card, m_cpu = card["feat_matched"].cpu(), cpu["feat_matched"]
+    agree = float((m_card == m_cpu)[cand].float().mean())
+    both = m_card & m_cpu
+    d = (card["feat_px"].cpu() - cpu["feat_px"]).abs().amax(-1)
+    within = float((d[both] <= ALT_PX).float().mean()) if both.any() else 0.0
+    worst = torch.argsort(torch.where(both, d, torch.full_like(d, -1.0)), descending=True,
+                          stable=True)[:5]
+    return {"candidates": int(cand.sum()), "matched_card": int(m_card.sum()),
+            "matched_cpu": int(m_cpu.sum()), "mask_agree": agree,
+            "lanes_apart": torch.nonzero(m_card != m_cpu)[:, 0].tolist(),
+            "px_within_share": within, "px_max": float(d[both].max()) if both.any() else 0.0,
+            "worst_lanes": [[int(i), float(d[i])] for i in worst if both[i]],
+            "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _graph_check(ps, frame, track_fn) -> dict:
+    """tracker.track_bidirectional on the card (a CUDA graph's replay)
+    against the same pass run eagerly, from ``ps``'s newest view into
+    ``frame``, every lane live there active, at 6 levels: equal bit for
+    bit."""
+    import torch
+
+    from slam_robot_tpu_torch import SlamConfig
+    from slam_robot_tpu_torch.ops import patch, tracker
+    from slam_robot_tpu_torch.ops.pyramid import FlatPyramid, build_pyramid
+
+    cfg = SlamConfig()
+    ms = ps.matcher
+    V, L = ms.view_pyr.shape[:2]
+    vi = torch.argsort(-ms.view_frame, stable=True)[:1]
+    ring = FlatPyramid(ms.view_pyr.reshape((V * L,) + ms.view_pyr.shape[2:]), None, None, L,
+                       offset=vi[0].long() * L)
+    new = build_pyramid(frame, L, cfg.blur_sigma0, cfg.blur_sigma_down)
+    from_pt = ms.feat_px.index_select(1, vi)[:, 0]
+    active = (ms.feat_point >= 0) & ms.feat_valid.index_select(1, vi)[:, 0]
+    lvls = torch.full_like(ms.feat_point, L)
+    w = patch.radial_mask(cfg.patch_size, cfg.mask_bias, device="cuda")
+    kw = dict(threshold=cfg.track_threshold, max_iters=cfg.track_max_iters,
+              roundtrip_px=cfg.roundtrip_px)
+    K = from_pt.shape[0]
+    t0 = time.perf_counter()
+    got = tracker.track_bidirectional(ring, new, from_pt, from_pt, lvls, w, active=active,
+                                      track_fn=track_fn, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = tracker.BIDIRECTIONAL_GRAPHS.fn(
+        ring.data, tracker.lane_offsets(ring, K, "cuda"), new.data,
+        tracker.lane_offsets(new, K, "cuda"), from_pt, from_pt, lvls, active, w, depth_from=L,
+        depth_to=L, min_variance=1e-5, fn=track_fn, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"active": int(active.sum()), "ok": int(got[1].sum()),
+            "equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+            "graph_ms": 1000 * (t1 - t0), "eager_ms": 1000 * (t2 - t1)}
+
+
+def _brute_pair(frames) -> dict:
+    """brute.track_feature on 256 seeded lanes from frame 0 to frame 2 (one
+    camera), on the card and on the host's CPU."""
+    import numpy as np
+    import torch
+
+    from slam_robot_tpu_torch.ops import brute, tracker
+    from slam_robot_tpu_torch.ops.pyramid import build_pyramid
+
+    rng = np.random.default_rng(12)
+    h, w = frames[0].shape[:2]
+    pts = torch.as_tensor(rng.uniform([24, 24], [w - 24, h - 24], size=(256, 2)),
+                          dtype=torch.float32)
+    lvls = torch.as_tensor(rng.choice([3, 6], size=256), dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pa, pb = (build_pyramid(frames[i].to(dev)) for i in (0, 2))
+        t0 = time.perf_counter()
+        p, ok = brute.track_feature(pb, tracker.get_patch_stack(pa, pts.to(dev)), pts.to(dev),
+                                    lvls.to(dev), sad_threshold=BRUTE_SAD)
+        out[dev] = (p.cpu(), ok.cpu(), time.perf_counter() - t0)
+    d = (out["cuda"][0] - out["cpu"][0]).abs().amax(-1)
+    return {"lanes": 256, "ok_card": int(out["cuda"][1].sum()),
+            "ok_equal": bool(torch.equal(out["cuda"][1], out["cpu"][1])),
+            "px_within_share": float((d <= BRUTE_PX).float().mean()), "px_max": float(d.max()),
+            "card_s": out["cuda"][2], "cpu_s": out["cpu"][2]}
+
+
+def _native_io(frames, direct) -> dict:
+    """(d): the native library on the card's host: the YUYV conversions
+    against their formulas, the ring's delivery rate, 16 bench frames fed
+    through the ring into pipeline.step against the state from feeding them
+    directly, and V4L2Source on /dev/video0."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from slam_robot_tpu_torch import SlamConfig
+    from slam_robot_tpu_torch.io import native
+    from slam_robot_tpu_torch.io.sources import V4L2Source
+    from slam_robot_tpu_torch.models import pipeline
+
+    if not native.available():
+        raise AssertionError("io/native: the library route does not run on the card's host")
+    h, w = frames[0].shape[:2]
+    yuyv = np.random.default_rng(8).integers(0, 256, size=2 * w * h, dtype=np.uint8)
+    q = yuyv.reshape(-1, 4).astype(np.int32)
+    y = np.stack([q[:, 0], q[:, 2]], 1)
+    cb = ((q[:, 1] - 128) * 454) >> 8
+    cg = ((q[:, 1] - 128) * 88 + (q[:, 3] - 128) * 183) >> 8
+    cr = ((q[:, 3] - 128) * 359) >> 8
+    bgr = np.clip(np.stack([y + cb[:, None], y - cg[:, None], y + cr[:, None]], -1), 0, 255)
+    if not np.array_equal(native.yuyv_to_bgr(yuyv, w, h), bgr.astype(np.uint8).reshape(h, w, 3)):
+        raise AssertionError("yuyv_to_bgr differs from the integer formula")
+    # the library's grey is luma * float32(1/255) (the numpy route divides)
+    grey = yuyv.reshape(-1, 2)[:, 0].astype(np.float32) * np.float32(1 / 255)
+    if not np.array_equal(native.yuyv_to_grey(yuyv, w, h), grey.reshape(h, w)):
+        raise AssertionError("yuyv_to_grey differs from luma * float32(1/255)")
+
+    host = [f.cpu().numpy() for f in frames]
+    it = iter(host)
+    t0 = time.perf_counter()
+    with native.FrameRing((h, w), capacity=4, fill=lambda: next(it, None)) as ring:
+        n = 0
+        while ring.next()[0] is not None:
+            n += 1
+    ring_fps = n / (time.perf_counter() - t0)
+
+    cfg = SlamConfig()
+    ps = pipeline.init(cfg, device="cuda")
+    it = iter(host[:RING_FRAMES])
+    _reset_counts()
+    with native.FrameRing((h, w), capacity=4, fill=lambda: next(it, None)) as ring:
+        while True:
+            img, fid = ring.next()
+            if img is None:
+                break
+            ps, _ = pipeline.step(ps, torch.as_tensor(img, device="cuda"), cfg)
+            ps = pipeline.maybe_polish(ps, fid, cfg)
+    counts = _read_counts()
+    _check_counts("phase 12 ring feed", counts, RING_FRAMES)
+    same = {f: bool(torch.equal(getattr(ps.map, f), getattr(direct.map, f)))
+            for f in ("frame_trans", "point_loc")}
+    all_equal = all(torch.equal(a, b) for a, b in zip(_state_leaves(ps), _state_leaves(direct)))
+    if not all(same.values()):
+        raise AssertionError(f"the ring-fed map differs from the directly fed one: {same}")
+    cam_init = V4L2Source("/dev/video0").init()
+    if not os.path.exists("/dev/video0") and cam_init:
+        raise AssertionError("V4L2Source.init() is True with no /dev/video0")
+    return {"library": native.library_path(), "conversions_exact": True,
+            "ring_frames_per_s": ring_fps, "ring_frames": n, "ring_feed_equal": same,
+            "ring_feed_state_equal": all_equal, "v4l2_video0_init": cam_init,
+            "launches": counts}
+
+
+def _sof_size(data: bytes) -> tuple[int, int]:
+    """(height, width) from a JPEG's SOF0 segment."""
+    i = 2
+    while data[i + 1] != 0xC0:
+        i += 2 + int.from_bytes(data[i + 2:i + 4], "big")
+    return int.from_bytes(data[i + 5:i + 7], "big"), int.from_bytes(data[i + 7:i + 9], "big")
+
+
+def _view_client(port: int, live: bool, out: dict, done) -> None:
+    """Read the live view while a run goes on: /, three /stream parts,
+    /points and one /point?id=N (the per-frame loop's inspector), then
+    /status until it carries frame, matches and points or the run ends."""
+    import http.client
+
+    def get(path):
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        c.request("GET", path)
+        r = c.getresponse()
+        body = r.read()
+        c.close()
+        return r.status, r.getheader("Content-Type"), body
+
+    try:
+        deadline = time.time() + 300
+        while True:
+            try:
+                out["page"] = get("/")
+                break
+            except OSError:
+                if done.is_set() or time.time() > deadline:
+                    raise
+                time.sleep(0.05)
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        c.request("GET", "/stream")
+        r = c.getresponse()
+        parts = []
+        for _ in range(3):
+            if b"--frame" not in r.fp.readline() or b"image/jpeg" not in r.fp.readline():
+                raise AssertionError("a /stream part without its boundary or type")
+            n = int(r.fp.readline().split(b":")[1])
+            r.fp.readline()
+            parts.append(r.fp.read(n))
+            r.fp.readline()  # the CRLF after each part
+        c.close()
+        out["parts"] = parts
+        if not live:
+            out["points"] = get("/points")
+            pts = json.loads(out["points"][2])
+            if pts:
+                out["point"] = get(f"/point?id={pts[0][0]}")
+        while True:
+            out["status"] = get("/status")
+            if {"frame", "matches", "points"} <= set(json.loads(out["status"][2])):
+                break
+            if done.is_set():
+                break
+            time.sleep(0.1)
+    except Exception as e:  # handed to the phase, which fails on it
+        out["error"] = repr(e)
+
+
+def _serve_runs(baseline: dict) -> dict:
+    """(e): run_replay --synthetic SERVE_FRAMES --serve PORT --view-every 1
+    on the card, per frame and --live, each with a client reading during
+    the run and PIL out of reach; the summary as ``baseline``'s (the same
+    run without --serve, phase 6) in n_points and n_obs."""
+    res = {}
+    counts = {"pyramid_flat": 0, "newton_track": 0, "sep5_reflect101": 0, "sweeps": 0}
+    # serve with PIL out of reach, whether or not the host has it: an import
+    # of PIL raises ImportError while the runs go on
+    hidden = {m: sys.modules.pop(m) for m in list(sys.modules) if m.split(".")[0] == "PIL"}
+    sys.modules["PIL"] = None
+    try:
+        _serve_modes(baseline, res, counts)
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(hidden)
+    res["launches"] = counts
+    return res
+
+
+def _serve_modes(baseline: dict, res: dict, counts: dict) -> None:
+    """The runs of :func:`_serve_runs`: a line each in ``res``, their
+    launches added to ``counts``."""
+    import contextlib
+    import io
+    import socket
+    import threading
+
+    import torch
+
+    from slam_robot_tpu_torch import run_replay
+
+    for mode in ("frame", "live"):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        got, done = {}, threading.Event()
+        client = threading.Thread(target=_view_client, args=(port, mode == "live", got, done),
+                                  daemon=True)
+        client.start()
+        _reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run_replay.main(["--synthetic", str(SERVE_FRAMES), "--serve", str(port),
+                                  "--view-every", "1", "--device", "cuda", "--quiet"]
+                                 + (["--live"] if mode == "live" else []))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        done.set()
+        client.join(timeout=120)
+        text = out.getvalue()
+        if rc != 0 or client.is_alive() or "error" in got:
+            raise AssertionError(f"serve {mode}: rc {rc}, client alive {client.is_alive()}, "
+                                 f"{got.get('error')}: {text[-1500:]}")
+        launches = _read_counts()
+        _check_counts(f"phase 12 serve {mode}", launches, SERVE_FRAMES)
+        for k, v in launches.items():
+            counts[k] += v
+        summary = json.loads(text.strip().splitlines()[-1])
+        page, status = got["page"], got["status"]
+        if page[0] != 200 or page[1] != "text/html" or b"slam_robot_tpu" not in page[2]:
+            raise AssertionError(f"serve {mode}: / gave {page[:2]}")
+        st = json.loads(status[2])
+        if status[1] != "application/json" or not {"frame", "matches", "points"} <= set(st):
+            raise AssertionError(f"serve {mode}: /status gave {status[1]} {st}")
+        sizes = [_sof_size(p) for p in got["parts"]]
+        if not all(p[:2] == b"\xff\xd8" and p[-2:] == b"\xff\xd9" for p in got["parts"]) \
+                or sizes != [(480, 640)] * 3:
+            raise AssertionError(f"serve {mode}: /stream parts are not 480x640 JPEGs: {sizes}")
+        line = {"call_s": call_s, "status": st, "stream_part_bytes": [len(p) for p in got["parts"]],
+                "n_points": summary["n_points"], "n_obs": summary["n_obs"], "launches": launches}
+        if mode == "frame":
+            pts = json.loads(got["points"][2])
+            point = got.get("point")
+            if not pts or point is None or point[0] != 200 or point[1] != "image/jpeg" \
+                    or point[2][:2] != b"\xff\xd8":
+                raise AssertionError(f"serve frame: /points {len(pts)} points, /point "
+                                     f"{point[:2] if point else None}")
+            line.update(points_served=len(pts), point_jpeg_bytes=len(point[2]))
+        if (summary["n_points"], summary["n_obs"]) != (baseline["n_points"], baseline["n_obs"]):
+            raise AssertionError(f"serve {mode}: summary {summary} differs from the run "
+                                 f"without --serve {baseline}")
+        res[mode] = line
+
+
+def phase_alt(frames, card: str, direct, serve_baseline: dict):
+    """Phase 12: the alternative trackers at full width, the native host
+    I/O and the live view. Returns (kernel counts, summary)."""
+    import importlib.util
+
+    from slam_robot_tpu_torch import SlamConfig
+    from slam_robot_tpu_torch.utils import jpeg
+    from slam_robot_tpu_torch.utils.debug_draw import draw_debug
+
+    t_phase = time.time()
+    summary = {"frames": len(frames)}
+    counts = {"pyramid_flat": 0, "newton_track": 0, "sep5_reflect101": 0, "sweeps": 0}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    # (a), (b): the step with each alternative tracker over the sweep
+    kept = None
+    for kind, kw in (("lanes", {"tracker_impl": "lanes"}), ("klt", {"tracker_kind": "klt"})):
+        cfg = SlamConfig(**kw)
+        ps, f, keep = _drive_sweep(cfg, frames, keep=(ALT_STATE_FRAME,) if kind == "lanes" else ())
+        c = f["launches"]
+        add(c)
+        print(f"phase 12 ({'a' if kind == 'lanes' else 'b'}) {kind} on {card}: {_sweep_line(f)}",
+              flush=True)
+        if c["pyramid_flat"] != 2 * len(frames) or c["newton_track"] or c["sweeps"] \
+                or c["sep5_reflect101"]:
+            raise AssertionError(f"{kind}: launches {c}: want 2 pyramid_flat a frame, "
+                                 f"no newton_track, no sep5")
+        _gate_sweep(f"phase 12 {kind}", f, ALT_MIN_POINTS[kind][len(frames)])
+        summary[kind] = f
+        kept = keep.get(ALT_STATE_FRAME, kept)
+        del ps
+
+    # (c): the alternative trackers on one state, card against the host's CPU
+    _reset_counts()
+    pair = {}
+    for kind, kw in (("lanes", {"tracker_impl": "lanes"}), ("klt", {"tracker_kind": "klt"})):
+        r = _alt_track_pair(kept, frames[ALT_STATE_FRAME + 1], SlamConfig(**kw))
+        pair[kind] = r
+        if r["mask_agree"] < ALT_MASK_AGREE or r["px_within_share"] < ALT_PX_SHARE:
+            raise AssertionError(f"{kind} card against CPU: {json.dumps(r)}")
+    from slam_robot_tpu_torch.ops import klt, tracker
+
+    graphs = {kind: _graph_check(kept, frames[ALT_STATE_FRAME + 1], fn)
+              for kind, fn in (("lanes", tracker.track_feature), ("klt", klt.track_feature))}
+    pair["graph_against_eager"] = graphs
+    pair["graphs"] = {"captures": tracker.BIDIRECTIONAL_GRAPHS.captures,
+                      "replays": tracker.BIDIRECTIONAL_GRAPHS.replays}
+    if not all(g["equal"] for g in graphs.values()):
+        raise AssertionError(f"a graph replay differs from the eager pass: {graphs}")
+    pair["brute"] = br = _brute_pair(frames)
+    if not br["ok_equal"] or br["px_within_share"] < BRUTE_PX_SHARE:
+        raise AssertionError(f"brute card against CPU: {json.dumps(br)}")
+    c = _read_counts()
+    add(c)
+    summary["card_vs_cpu"] = pair
+    print(f"phase 12 (c) card against the host's CPU on frame {ALT_STATE_FRAME + 1}'s state: "
+          f"{json.dumps(pair)}; launches {c}", flush=True)
+
+    # (d): native host I/O
+    summary["native"] = nat = _native_io(frames, direct)
+    add(nat["launches"])
+    print(f"phase 12 (d) native I/O: {json.dumps(nat)}", flush=True)
+
+    # (e): the live view, with the encoder's time a 640x480 overlay
+    summary["serve"] = srv = _serve_runs(serve_baseline)
+    add(srv["launches"])
+    overlay = draw_debug(direct.map, frames[RING_FRAMES - 1].cpu().numpy())
+    enc_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        data = jpeg.encode(overlay, 85)
+        enc_ms.append(1000.0 * (time.perf_counter() - t0))
+    srv["encode_ms_640x480"] = statistics.median(enc_ms)
+    srv["encode_bytes"] = len(data)
+    srv["pil_installed_on_host"] = importlib.util.find_spec("PIL") is not None
+    srv["served_with_pil_blocked"] = True
+    print(f"phase 12 (e) live view on {card}: {json.dumps(srv)}", flush=True)
+    summary["phase_s"] = time.time() - t_phase
+    summary["launches"] = counts
+    print(f"phase 12 wall {summary['phase_s']:.1f} s; launches {counts}", flush=True)
+    return counts, summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="K",
@@ -2277,13 +2755,14 @@ def main() -> int:
         print(f"{phase} done at {time.time() - t_run:.1f} s", flush=True)
 
     knob_frames = frames[:KNOB_FRAMES]
+    alt_frames = frames[:ALT_FRAMES]
     sep5 = phase_blur(frames[0])
     entries = [phase_pyramid(frames[0])]
     took("phase 2")
     newton_level = phase_newton(frames)
     entries.append(phase_track(frames))
     took("phase 3")
-    counts, summary, ps = phase_main(frames[:MAIN_FRAMES])
+    counts, summary, ps, direct16 = phase_main(frames[:MAIN_FRAMES])
     took("phase 4")
     if args.profile:
         summary["profile"] = phase_profile(ps, frames, MAIN_FRAMES, args.out,
@@ -2307,9 +2786,13 @@ def main() -> int:
     took("phase 10")
     suite_counts, suite, suite_kernels = phase_suite(card)
     took("phase 11")
-    for e in entries:  # the main path's kernels: phases 4, 6, 8, 9, 10 and 11
+    alt_counts, alt = phase_alt(alt_frames, card, direct16, runs["synthetic"]["summary"])
+    del alt_frames, direct16
+    took("phase 12")
+    for e in entries:  # the main path's kernels: phases 4, 6 and 8-12
         e["launches"] += (loop_counts[e["name"]] + parity_counts[e["name"]]
-                          + knob_counts[e["name"]] + suite_counts[e["name"]])
+                          + knob_counts[e["name"]] + suite_counts[e["name"]]
+                          + alt_counts[e["name"]])
         e["loop_shapes"] = loop_kernels[e["name"]]
         e["parity_shapes"] = parity_kernels[e["name"]]
         e["suite_shapes"] = suite_kernels[e["name"]]
@@ -2324,7 +2807,7 @@ def main() -> int:
         raise AssertionError(f"the port loaded JAX, the JAX package or its tools: {foreign}")
     print(json.dumps({"main_path": summary, "replay": runs, "probes": probes,
                       "closed_loop": loop, "parity": parity_sum, "knobs": knobs,
-                      "bench_suite": suite}))
+                      "bench_suite": suite, "alt_trackers_io_view": alt}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,13 +8,15 @@ Port of ``slam_robot_tpu/io/sources.py``:
 - ``DuoSource``         two sources alternated by camera index (video.h:65-86)
 - ``SyntheticSource``   frames rendered from a landmark world along a
                         scripted trajectory, on a torch device
+- ``V4L2Source``        live capture through the native library's V4L2
+                        shim (``io/v4l2``, video.cpp:255-340)
 - ``prefetch``          a double-buffering iterator that overlaps host
                         decode with device compute
 
 All sources yield float32 [H, W] grey or [H, W, 3] numpy images via
 ``get(camera, frame_id)``, None at the end of the stream. PIL (``.png``)
 and cv2 (``VideoSource``) are imported only when used; ``.npy`` replay
-needs neither. Live V4L2 capture is not ported (ROADMAP A17).
+needs neither.
 """
 
 from __future__ import annotations
@@ -162,6 +164,38 @@ class SyntheticSource:
             height=self.cfg.image_height, width=self.cfg.image_width,
         )
         return img.cpu().numpy()
+
+
+class V4L2Source:
+    """Live V4L2 capture through the native shim (video.cpp:255-340).
+
+    Functional only on a host with ``/dev/video*``: ``init()`` is False
+    where the device node is missing or cannot be opened (on a host with no
+    camera, the only answer that can be run), and ``get`` returns a grey
+    f32 [h, w] frame or None. Everything else replays with ``FileSource``,
+    the reference's own test strategy."""
+
+    def __init__(self, device: str = "/dev/video0", width: int = 640, height: int = 480):
+        self.device = device
+        self.width = width
+        self.height = height
+        self._cap = None
+
+    def init(self) -> bool:
+        if not os.path.exists(self.device):
+            return False
+        from slam_robot_tpu_torch.io import v4l2
+
+        cap = v4l2.Capture(self.device, self.width, self.height)
+        if not cap.start():
+            return False
+        self._cap = cap
+        return True
+
+    def get(self, camera: int, frame_id: int):
+        if self._cap is None:
+            return None
+        return self._cap.read()
 
 
 def prefetch(source, cameras: int = 2, depth: int = 2):

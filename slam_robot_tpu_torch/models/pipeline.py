@@ -49,7 +49,6 @@ class PipelineState(NamedTuple):
 def init(cfg: SlamConfig, intrinsics=None, device=None) -> PipelineState:
     """Two cameras with the reference's intrinsics by default, on
     ``device`` (default: the CUDA card, see ``device.default_device``)."""
-    matcher_mod.check_supported(cfg)
     device = default_device(device)
     m = lm.empty(cfg, device)
     if intrinsics is None:

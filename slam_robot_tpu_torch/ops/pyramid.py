@@ -65,8 +65,9 @@ def _grey_weights(device: torch.device) -> torch.Tensor:
 
 
 @functools.cache
-def _level_sizes(height: int, width: int, depth: int, device: torch.device):
-    """(heights, widths) int32 tensors of a pyramid, made once per size."""
+def level_sizes(height: int, width: int, depth: int, device: torch.device):
+    """(heights, widths) int32 tensors of a pyramid, made once per size and
+    device (a tensor made from host data is a synchronizing copy on a card)."""
     dims = level_dims(height, width, depth)
     return (torch.tensor([d[0] for d in dims], dtype=torch.int32, device=device),
             torch.tensor([d[1] for d in dims], dtype=torch.int32, device=device))
@@ -96,6 +97,6 @@ def build_pyramid(img: torch.Tensor, depth: int = 6, sigma0: float = 1.1,
     image (at most two kernel launches on the card)."""
     g = to_grey(img).contiguous()
     h0, w0 = g.shape
-    heights, widths = _level_sizes(h0, w0, depth, g.device)
+    heights, widths = level_sizes(h0, w0, depth, g.device)
     return FlatPyramid(data=blur_kernel.pyramid_flat(g, depth, sigma0, sigma_down),
                        heights=heights, widths=widths, depth_=depth)

@@ -77,7 +77,8 @@ def test_port_modules_import_nothing_of_the_jax_package():
         "             'models.vehicle', 'models.planner', 'models.sim', 'parallel.mesh',\n"
         "             'parallel.rollouts', 'io.usb', 'ops.ba_cg', 'parallel.sharded_ba',\n"
         "             'parallel.multi_robot', 'parallel.dryrun', 'tools.calibrate',\n"
-        "             'tools.bench_suite', 'ops.obs_shards'):\n"
+        "             'tools.bench_suite', 'ops.obs_shards', 'ops.klt', 'ops.brute',\n"
+        "             'io.native', 'io.v4l2', 'utils.jpeg', 'utils.liveview'):\n"
         "    assert 'slam_robot_tpu_torch.' + want in names, (want, names)\n"
         "print(len(names))\n"
     )

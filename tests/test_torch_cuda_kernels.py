@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions on the card: B1 (``newton_track``, and ``newton_level`` as its
 one-level call), B2 (``pyramid_flat`` and ``sep5``) and the tools' probe
-kernels, with the launches each makes per pyramid and per sweep; and the
+kernels, with the launches each makes per pyramid and per sweep; the
+alternative trackers' CUDA-graph replay against their eager pass; and the
 closed loop on the card (the fleet without a host read, the SLAM loop's
 launch gates at run_sim's 120x160 shapes).
 
@@ -311,6 +312,38 @@ def test_bidirectional_sweep_is_two_launches_on_card(cuda_device):
                                          bwd_ref_from_window=True, bwd_win_cache=wins)
     assert t_newton.KERNEL.launches == launches + 2 and t_tf.SWEEPS.n == sweeps + 1
     assert bool(got[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lanes", "klt"])
+def test_alternative_tracker_graph_replays_the_eager_pass_on_card(cuda_device, kind):
+    """tracker.track_bidirectional replays a CUDA graph on the card: the
+    same values as the eager pass, bit for bit, and the same on a second
+    call with other inputs (the graph's inputs are copied in)."""
+    from slam_robot_tpu_torch.ops import klt, tracker
+
+    fn = klt.track_feature if kind == "klt" else tracker.track_feature
+    rng = np.random.default_rng(3)
+    img = rng.uniform(size=(120, 160)).astype(np.float32)
+    wmask = t_patch.radial_mask(13, device=cuda_device)
+    graphs = tracker.BIDIRECTIONAL_GRAPHS
+    for shift in (1, 2):
+        pa, pb = (t_pyr.build_pyramid(torch.as_tensor(np.roll(img, s, 1), device=cuda_device),
+                                      depth=4) for s in (0, shift))
+        pts = torch.as_tensor(rng.uniform(20, 100, size=(32, 2)), dtype=torch.float32,
+                              device=cuda_device)
+        lvls = torch.full((32,), 4, dtype=torch.int32, device=cuda_device)
+        active = torch.arange(32, device=cuda_device) % 5 != 0
+        replays = graphs.replays
+        got = tracker.track_bidirectional(pa, pb, pts, pts, lvls, wmask, max_iters=6,
+                                          active=active, track_fn=fn)
+        offs = torch.zeros(32, dtype=torch.long, device=cuda_device)
+        want = graphs.fn(pa.data, offs, pb.data, offs, pts, pts, lvls, active, wmask,
+                         depth_from=4, depth_to=4, threshold=0.001, max_iters=6,
+                         roundtrip_px=0.3, min_variance=1e-5, fn=fn)
+        assert graphs.replays == replays + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert bool(got[1].any())
 
 
 @pytest.mark.cuda

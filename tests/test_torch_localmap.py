@@ -180,16 +180,26 @@ def test_refresh_flags_and_recent_obs_match():
 
 
 def test_unported_knobs_raise():
+    """No knob is left unported: the alternative trackers init and step
+    (held against the JAX package in tests/test_torch_alt_trackers.py), as
+    every other knob inits; only kernel arguments outside their
+    preconditions raise."""
     import pytest
 
     from slam_robot_tpu_torch.models import matcher, pipeline
     from slam_robot_tpu_torch.ops.cuda import newton
 
-    # only the alternative trackers are left; every other knob runs
-    assert set(matcher.UNPORTED) == {"tracker_impl", "tracker_kind"}
+    assert not hasattr(matcher, "UNPORTED")
+    small = dataclasses.replace(TCFG, image_width=160, image_height=120, pyramid_depth=4,
+                                levels_unsure=4, max_features=64, max_corners=30)
     for kw in ({"tracker_impl": "lanes"}, {"tracker_kind": "klt"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipeline.init(dataclasses.replace(TCFG, **kw), device="cpu")
+        cfg = dataclasses.replace(small, **kw)
+        ps = pipeline.init(cfg, device="cpu")
+        img = torch.as_tensor(np.random.default_rng(0).uniform(size=(120, 160)),
+                              dtype=torch.float32)
+        for _ in range(2):
+            ps, met = pipeline.step(ps, img, cfg)
+        assert int(met["n_matches"]) > 0 and torch.isfinite(ps.map.point_loc).all()
     pipeline.init(dataclasses.replace(
         TCFG, retry_mode="cycle", mid_frame_resolve=True, motion_model="constant_velocity",
         drop_idle_frames=True, clean_duplicates=True, adaptive_fwd_px=2.0,

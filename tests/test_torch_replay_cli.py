@@ -71,7 +71,6 @@ def test_outputs_of_every_flag(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,code,text", [
-    (["--serve", "8080"], 2, "A11"),
     (["--synthetic", "2", "--live", "--debug-numerics"], 1, "incompatible"),
     (["--synthetic", "2", "--live", "--patch-history", "x"], 1, "incompatible"),
     ([], 1, "need --load"),
