@@ -1,6 +1,6 @@
 """Drive the PyTorch port's SLAM step, replay driver, closed loop,
-benchmark suite, alternative trackers, host I/O and live view on one CUDA
-card and check them.
+benchmark suite, alternative trackers, host I/O, live view and headline
+benchmark on one CUDA card and check them.
 
 Run from the repository root:
 
@@ -134,15 +134,25 @@ Phases, one line each (phases 2 and 3 several):
      /points and /point?id=N while it runs and PIL out of reach, the
      summaries as phase 6's synthetic run's, and the JPEG encoder's time a
      640x480 overlay
+ 13. the headline benchmark: the port's bench.run at SlamConfig() for seed
+     0, bench.py's 96 warm and 64 timed frames, its warm going on from phase
+     4's state after frame 63 (phase 4 steps frames 0-63 as the warm does);
+     the scan's first pass and two timed passes, the eager steps and the
+     live ring; fps, each pass's ms a frame, syncs and launches a frame in
+     the timed window, points, ATE, the error split and peak memory; fails
+     on a dropped row, the canary, a NaN/Inf in a state, <= 300 points, an
+     aligned ATE over 5 %, phase 4's launch gates over the timed passes and
+     the live segment, timed passes that end apart, or a live segment whose
+     final state is not the scan's, bit for bit
 
 The JSON line before the card's line holds the main path's, the replay
 runs', every probe case's, the closed loop's, the parity replays', the
-knobs', the bench suite's and phase 12's figures. The line before
-the last is a JSON object with one entry per kernel entry point, its
-launches counted over phases 4, 6 and 8-12 (pyramid_flat, newton_track:
+knobs', the bench suite's, phase 12's and the bench's figures. The line
+before the last is a JSON object with one entry per kernel entry point, its
+launches counted over phases 4, 6 and 8-13 (pyramid_flat, newton_track:
 the main path, the replay driver, the SLAM loop, the parity replays, the
-knobs' run, bench_suite config 1 and calibrate, and phase 12's runs; no
-newton_track on phase 12's tracker runs), phase 7's mains
+knobs' run, bench_suite config 1 and calibrate, phase 12's runs and the
+bench; no newton_track on phase 12's tracker runs), phase 7's mains
 (sep5_reflect101: probe2's reference runs pyramid.blur and pyr_down) or
 phase 7 (the probes' entry points); the last line is {"ok": true, "device":
 {...}}. Any failure raises, and the script exits non-zero without printing
@@ -198,6 +208,10 @@ ALT_MASK_AGREE = 0.98
 ALT_PX, ALT_PX_SHARE = 2e-3, 0.95
 BRUTE_PX, BRUTE_PX_SHARE = 1e-4, 0.99
 BRUTE_SAD = 2.0
+
+# phase 13: bench.py's warm and timed frames, seed 0 (seeds 1 and 2 run in
+# the standalone bench, python -m slam_robot_tpu_torch.bench)
+BENCH_WARM, BENCH_TIMED = 96, 64
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores (every kernel is float32 CUDA-core
@@ -802,12 +816,9 @@ def _reset_counts() -> None:
 
 
 def _read_counts() -> dict:
-    from slam_robot_tpu_torch.ops import tracker_fused
-    from slam_robot_tpu_torch.ops.cuda import blur as bk
-    from slam_robot_tpu_torch.ops.cuda import newton as nk
+    from slam_robot_tpu_torch import bench
 
-    return {"pyramid_flat": bk.PYRAMID.launches, "newton_track": nk.KERNEL.launches,
-            "sep5_reflect101": bk.KERNEL.launches, "sweeps": tracker_fused.SWEEPS.n}
+    return {k: v for k, v in bench.counts().items() if k != "syncs"}
 
 
 def _check_counts(name: str, counts: dict, n_frames: int) -> None:
@@ -2718,6 +2729,91 @@ def phase_alt(frames, card: str, direct, serve_baseline: dict):
     return counts, summary
 
 
+def _states_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(_state_leaves(a), _state_leaves(b),
+                                                 strict=True))
+
+
+def phase_bench(start, card: str):
+    """Phase 13: the port's bench.run at SlamConfig() for seed 0, its warm
+    going on from phase 4's state after frame MAIN_FRAMES - 1. Returns
+    (kernel counts over the phase, summary)."""
+    import numpy as np
+    import torch
+
+    from slam_robot_tpu_torch import SlamConfig, bench
+    from slam_robot_tpu_torch.tools import probe_errfresh, probe_seed1
+    from slam_robot_tpu_torch.utils.benchscene import sweep_pose
+
+    t_phase = time.time()
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    line = bench.run(SlamConfig(), n_warm=BENCH_WARM, n_timed=BENCH_TIMED, seeds=(0,),
+                     device="cuda", start=(start, MAIN_FRAMES), results=res)
+    counts = _read_counts()
+    d = line["detail"]
+    scan, lw = res["scan_window"], res["live_window"]
+    first, *reps = res["scan_states"]
+    # the bench workload's diagnostics on the scan's final map
+    m = first.map
+    nf = int(m.n_frames)
+    true_t = np.stack([sweep_pose(i)[1] for i in range(nf)])
+    diagnostics = {"errfresh": probe_errfresh.audit(m, SlamConfig()),
+                   "gauge": probe_seed1.gauge(m.frame_trans[:nf].cpu().numpy(), true_t)}
+    summary = {
+        "fps": line["value"], "scan_step_ms": d["scan_step_ms"],
+        "scan_step_ms_reps": d["scan_step_ms_reps"], "eager_step_ms": d["eager_step_ms"],
+        "live_step_ms": d["live_step_ms"], "scan_compile_s": d["scan_compile_s"],
+        "compile_s": d["compile_s"],
+        "timed_per_frame": {k: v / scan["frames"] for k, v in scan.items() if k != "frames"},
+        "live_per_frame": {k: v / lw["frames"] for k, v in lw.items() if k != "frames"},
+        "n_points": d["n_points"], "n_obs": d["n_obs"], "ate_mm": d["ate_mm"],
+        "ate_pct_of_path": d["ate_pct_of_path"],
+        "ate_pct_aligned": d["ate_pct_aligned_per_seed"][0],
+        "median_enabled_err_px": d["median_enabled_err_px"], "err_split": d["err_split"],
+        "obs_dropped_total": d["obs_dropped_total"], "live_obs_dropped": d["live_obs_dropped"],
+        "live_canary_max_px": d["live_canary_max_px"],
+        "reps_equal": all(_states_equal(r, reps[0]) for r in reps[1:]),
+        "first_pass_equal_reps": _states_equal(first, reps[0]),
+        "live_equal_scan": _states_equal(res["live_state"], first),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": counts,
+        "diagnostics": diagnostics, "line": line,
+    }
+    print(f"phase 13 bench on {card}: {summary['fps']} fps; scan {d['scan_step_ms']} ms a "
+          f"frame (reps {d['scan_step_ms_reps']}), eager {d['eager_step_ms']}, live "
+          f"{d['live_step_ms']}; timed window a frame {json.dumps(summary['timed_per_frame'])}; "
+          f"n_points {d['n_points']}, n_obs {d['n_obs']}, ATE {d['ate_mm']} mm = "
+          f"{d['ate_pct_of_path']} % raw, {summary['ate_pct_aligned']} % aligned; err split "
+          f"{json.dumps(d['err_split'])}; dropped {d['obs_dropped_total']} + "
+          f"{d['live_obs_dropped']} live, canary max {d['live_canary_max_px']} px; reps equal "
+          f"{summary['reps_equal']}, live equal scan {summary['live_equal_scan']}; peak "
+          f"{summary['peak_gib']:.3f} GiB; diagnostics {json.dumps(diagnostics)}", flush=True)
+    _check_counts("phase 13 timed scan", scan, scan["frames"])
+    _check_counts("phase 13 live", lw, lw["frames"])
+    for name, ps in [("warm", res["warm_state"]), ("live", res["live_state"])] + [
+            (f"scan pass {i}", s) for i, s in enumerate(res["scan_states"])]:
+        _finite(f"phase 13's {name} state", _state_leaves(ps))
+    if d["obs_dropped_total"] or d["live_obs_dropped"]:
+        raise AssertionError(f"phase 13: obs rows dropped: {d['obs_dropped_total']} scan, "
+                             f"{d['live_obs_dropped']} live")
+    if not d["live_canary_max_px"] < 0.1:
+        raise AssertionError(f"phase 13: normalize canary {d['live_canary_max_px']} px >= 0.1")
+    if d["n_points"] <= 300:
+        raise AssertionError(f"phase 13: map too small: n_points {d['n_points']}")
+    if not summary["ate_pct_aligned"] <= 5.0:
+        raise AssertionError(f"phase 13: aligned ATE {summary['ate_pct_aligned']} % of path > 5 %")
+    if not summary["reps_equal"]:
+        raise AssertionError("phase 13: the timed scan passes end in different states")
+    if not summary["live_equal_scan"]:
+        raise AssertionError("phase 13: the live segment's final state differs from the scan's")
+    summary["phase_s"] = time.time() - t_phase
+    return counts, summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="K",
@@ -2768,7 +2864,7 @@ def main() -> int:
         summary["profile"] = phase_profile(ps, frames, MAIN_FRAMES, args.out,
                                            summary["median_step_ms_last16"])
         took("phase 5")
-    del frames, ps
+    del frames
     replay_counts, runs = phase_replay(card)
     took("phase 6")
     for e in entries:  # the main path's kernels: phases 4 and 6 (8 below)
@@ -2789,10 +2885,13 @@ def main() -> int:
     alt_counts, alt = phase_alt(alt_frames, card, direct16, runs["synthetic"]["summary"])
     del alt_frames, direct16
     took("phase 12")
-    for e in entries:  # the main path's kernels: phases 4, 6 and 8-12
+    bench_counts, bench_sum = phase_bench(ps, card)
+    del ps
+    took("phase 13")
+    for e in entries:  # the main path's kernels: phases 4, 6 and 8-13
         e["launches"] += (loop_counts[e["name"]] + parity_counts[e["name"]]
                           + knob_counts[e["name"]] + suite_counts[e["name"]]
-                          + alt_counts[e["name"]])
+                          + alt_counts[e["name"]] + bench_counts[e["name"]])
         e["loop_shapes"] = loop_kernels[e["name"]]
         e["parity_shapes"] = parity_kernels[e["name"]]
         e["suite_shapes"] = suite_kernels[e["name"]]
@@ -2807,7 +2906,7 @@ def main() -> int:
         raise AssertionError(f"the port loaded JAX, the JAX package or its tools: {foreign}")
     print(json.dumps({"main_path": summary, "replay": runs, "probes": probes,
                       "closed_loop": loop, "parity": parity_sum, "knobs": knobs,
-                      "bench_suite": suite, "alt_trackers_io_view": alt}))
+                      "bench_suite": suite, "alt_trackers_io_view": alt, "bench": bench_sum}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,20 +1,20 @@
 """The BASELINE.json benchmark configs, one JSON line each.
 
-Port of ``tools/bench_suite.py`` (configs 1, 2, 4 and 5; same shapes,
-seeds and JSON lines):
+Port of ``tools/bench_suite.py`` (configs 1-5; same shapes, seeds and
+JSON lines):
 
 1. recorded monocular replay: tracking only, ~300 features, no BA
 2. sliding-window BA: 10 keyframes x 500 landmarks
+3. the headline: the port's ``bench.main`` (``slam_robot_tpu_torch/bench.py``)
 4. closed-loop sim: 64 batched rollouts
 5. large-scale mapping: batched BA at 10k keyframes / 500k landmarks
    (implicit-Schur CG), the same on a four-shard mesh, plus a multi-robot
    shared-map solve
 
-Config 3 is ``bench.py``'s headline, which the port does not have yet
-(ROADMAP A18): asking for it exits with status 2.
-
     python -m slam_robot_tpu_torch.tools.bench_suite [--configs 1,2,4,5] [--device cpu]
-    python -m slam_robot_tpu_torch.tools.bench_suite --small      # CI-sized shapes
+    python -m slam_robot_tpu_torch.tools.bench_suite --small --configs 1,2,4,5  # CI shapes
+
+``--small`` cuts configs 1, 2, 4 and 5; config 3 is always the full bench.
 
 ``--device`` (default ``cuda``, the card) replaces the original's
 ``--platform``. A line's ``value`` is a rate over wall time on that
@@ -48,17 +48,13 @@ def main(argv=None, results: dict | None = None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda; cpu for a CPU run)")
-    ap.add_argument("--configs", default="1,2,4,5")
+    ap.add_argument("--configs", default="1,2,3,4,5")
     ap.add_argument("--small", action="store_true")
     args = ap.parse_args(argv)
     configs = {int(c) for c in args.configs.split(",")}
-    if 3 in configs:
-        print("bench_suite: config 3 is bench.py's headline, not ported yet (ROADMAP A18)",
-              file=sys.stderr)
-        return 2
-    unknown = configs - {1, 2, 4, 5}
+    unknown = configs - {1, 2, 3, 4, 5}
     if unknown:
-        ap.error(f"no config {sorted(unknown)}: 1, 2, 4 or 5")
+        ap.error(f"no config {sorted(unknown)}: 1, 2, 3, 4 or 5")
 
     import numpy as np
     import torch
@@ -142,6 +138,14 @@ def main(argv=None, results: dict | None = None) -> int:
              lm_iters=iters, iters_per_s=round(iters / dt, 1), cost=float(res.cost),
              cost0=float(res.cost0))
         out["2"] = dict(run=run)
+
+    # ---- config 3: headline (bench.py) ----
+    if 3 in configs:
+        from slam_robot_tpu_torch import bench
+
+        rc = bench.main(["--device", str(dev)])
+        if rc:
+            return rc
 
     # ---- config 4: 64 rollouts ----
     if 4 in configs:

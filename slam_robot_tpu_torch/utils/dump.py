@@ -56,6 +56,12 @@ def ate(traj_a: np.ndarray, traj_b: np.ndarray) -> float:
     return float(np.sqrt(np.mean(np.sum(d * d, axis=1))))
 
 
+def reflection_sign(U: np.ndarray, Vt: np.ndarray) -> float:
+    """The last diagonal entry that makes ``U diag(1, 1, d) Vt`` (or its
+    transpose) a rotation: -1 exactly when det(U) det(Vt) < 0, else +1."""
+    return -1.0 if np.linalg.det(U) * np.linalg.det(Vt) < 0 else 1.0
+
+
 def align_umeyama(est: np.ndarray, true: np.ndarray, with_scale: bool = True):
     """Closed-form Sim(3) (or SE(3)) fit mapping ``est`` onto ``true``.
     Returns ``(s, R, t)`` with ``aligned = s * est @ R.T + t``. Fewer than
@@ -75,8 +81,7 @@ def align_umeyama(est: np.ndarray, true: np.ndarray, with_scale: bool = True):
     cov = tc.T @ ec / n                      # Sigma_xy with x = true, y = est
     U, D, Vt = np.linalg.svd(cov)
     S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1.0
+    S[2, 2] = reflection_sign(U, Vt)
     R = U @ S @ Vt
     s = float(np.trace(np.diag(D) @ S)) / var_e if with_scale else 1.0
     t = mu_t - s * (R @ mu_e)

@@ -78,7 +78,8 @@ def test_port_modules_import_nothing_of_the_jax_package():
         "             'parallel.rollouts', 'io.usb', 'ops.ba_cg', 'parallel.sharded_ba',\n"
         "             'parallel.multi_robot', 'parallel.dryrun', 'tools.calibrate',\n"
         "             'tools.bench_suite', 'ops.obs_shards', 'ops.klt', 'ops.brute',\n"
-        "             'io.native', 'io.v4l2', 'utils.jpeg', 'utils.liveview'):\n"
+        "             'io.native', 'io.v4l2', 'utils.jpeg', 'utils.liveview', 'bench',\n"
+        "             'tools.probe_errfresh', 'tools.probe_seed1'):\n"
         "    assert 'slam_robot_tpu_torch.' + want in names, (want, names)\n"
         "print(len(names))\n"
     )
@@ -114,7 +115,7 @@ def test_entry_points_without_a_device_mean_the_card():
     from slam_robot_tpu_torch.models import (localmap, matcher, pipeline, planner, renderer, sim,
                                             vehicle)
     from slam_robot_tpu_torch.parallel import mesh
-    from slam_robot_tpu_torch.tools import bench_suite, calibrate
+    from slam_robot_tpu_torch.tools import bench_suite, calibrate, probe_errfresh, probe_seed1
     from slam_robot_tpu_torch.utils import benchscene, synthetic
 
     cfg = SlamConfig(image_width=160, image_height=120, pyramid_depth=4,
@@ -133,7 +134,8 @@ def test_entry_points_without_a_device_mean_the_card():
                  lambda: synthetic.build_scene(cfg), lambda: synthetic.make_trajectory(4, cfg),
                  lambda: synthetic.build_large_problem(10, 100, 4),
                  lambda: calibrate.main(["--synthetic", "2"]),
-                 lambda: bench_suite.main(["--configs", "5", "--small"])):
+                 lambda: bench_suite.main(["--configs", "5", "--small"]),
+                 lambda: probe_errfresh.main([]), lambda: probe_seed1.main([])):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     assert default_device("cpu") == torch.device("cpu")

@@ -551,3 +551,28 @@ def test_slam_loop_launch_gates_on_card(cuda_device):
     assert t_newton.KERNEL.launches - track == 2 * (t_tf.SWEEPS.n - sweeps)
     assert bool(torch.isfinite(traj).all() and torch.isfinite(est).all())
     assert traj.device.type == "cuda" and np.isfinite(float(dist))
+
+
+@pytest.mark.cuda
+def test_bench_warm_goes_on_from_a_stepped_state_bit_for_bit_on_card(cuda_device):
+    """The bench's warm at SlamConfig() from frame 0, and from the state
+    after frames 0-63 stepped as chip_smoke.py's phase 4 steps them (step +
+    maybe_polish): the same state, bit for bit, after frame 95."""
+    from slam_robot_tpu_torch import SlamConfig, bench
+    from slam_robot_tpu_torch.models import pipeline
+    from slam_robot_tpu_torch.utils.benchscene import make_frames
+
+    cfg = SlamConfig()
+    frames = make_frames(cfg, 96, device=cuda_device)
+    want, _, _ = bench.bootstrap(cfg, frames, 96, cuda_device)
+    ps = pipeline.init(cfg, device=cuda_device)
+    for i in range(64):
+        ps, _ = pipeline.step(ps, frames[i], cfg)
+        ps = pipeline.maybe_polish(ps, i, cfg)
+    got, _, _ = bench.bootstrap(cfg, frames, 96, cuda_device, start=(ps, 64))
+
+    def leaves(s):
+        return [x for v in s for x in (leaves(v) if isinstance(v, tuple) else [v])]
+
+    for g, w in zip(leaves(got), leaves(want), strict=True):
+        assert torch.equal(g, w)

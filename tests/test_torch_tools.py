@@ -1,5 +1,5 @@
 """The port's user tools: ``tools/calibrate`` (the SolveCameras flow) and
-``tools/bench_suite`` (configs 1, 2, 4 and 5), on the CPU.
+``tools/bench_suite`` (configs 1-5), on the CPU.
 
 - calibrate: the port's tool replays 8 synthetic frames at 160x120, then
   runs the flow; the JAX package's flow (``reset_cameras``,
@@ -24,10 +24,12 @@
 - bench_suite ``--small``: one JSON line per result of configs 1, 2, 4 and
   5, each with the name, unit and detail keys of the original's ``emit``
   call (read from tools/bench_suite.py's source), finite values, and the
-  solves doing work; ``--configs 3`` exits 2 naming ROADMAP A18.
+  solves doing work; ``--configs 3`` runs the port's ``bench.main`` (at a
+  small size) and prints its line.
 """
 
 import ast
+import dataclasses
 import functools
 import itertools
 import json
@@ -162,7 +164,26 @@ def test_bench_suite_small_emits_the_originals_lines(capsys):
     assert mr["robots"] == 2 and mr["mean_point_err_mm"] < mr["mean_point_err0_mm"]
 
 
-def test_bench_suite_config_3_exits_2(capsys):
-    assert bench_suite.main(["--configs", "3", "--device", "cpu"]) == 2
-    captured = capsys.readouterr()
-    assert "A18" in captured.err and captured.out == ""
+def test_bench_suite_config_3_runs_the_ports_bench(monkeypatch, capsys):
+    """Config 3 is the port's ``bench.main``: its one JSON line, exit 0.
+    ``bench.run`` is cut to tests/test_pipeline.CFG, a 24-frame warm, 8
+    timed frames and one seed (~80 s here)."""
+    from slam_robot_tpu_torch import bench
+    from tests.test_pipeline import CFG
+
+    real, asked = bench.run, []
+
+    def small(cfg, device=None):
+        asked.append(cfg)
+        return real(t_config.SlamConfig(**dataclasses.asdict(CFG)), n_warm=24, n_timed=8,
+                    seeds=(0,), device=device)
+
+    monkeypatch.setattr(bench, "run", small)
+    assert bench_suite.main(["--configs", "3", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert asked == [t_config.SlamConfig()] and len(out) == 1
+    line = json.loads(out[0])
+    assert line["metric"] == bench.METRIC and line["unit"] == "fps" and line["value"] > 0
+    d = line["detail"]
+    assert d["device"] == "cpu" and d["obs_dropped_total"] == d["live_obs_dropped"] == 0
+    assert line["vs_baseline"] == round(line["value"] / 60.0, 3)
