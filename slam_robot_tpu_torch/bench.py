@@ -78,48 +78,53 @@ def _since(before: dict) -> dict:
 
 
 def bootstrap(cfg: SlamConfig, frames, n_warm: int, device=None, start=None,
-              n_eager: int = N_EAGER):
+              n_eager: int = N_EAGER, run_slam: bool = True):
     """The warm: ``step`` + ``maybe_polish`` over frames up to ``n_warm -
-    n_eager``, then ``n_eager`` steps without a polish. ``start`` is
-    ``(state, i)`` to go on from a state that has stepped frames ``0..i-1``
-    this way; by default a fresh state from frame 0. Returns ``(state,
-    compile_s, eager_ms)``: the first step's wall time (the kernels' build
-    or load included) and the eager steps' mean ms (None without them)."""
+    n_eager``, then ``n_eager`` steps without a polish, each with
+    ``run_slam``. ``start`` is ``(state, i)`` to go on from a state that has
+    stepped frames ``0..i-1`` this way; by default a fresh state from frame
+    0. Returns ``(state, compile_s, eager_ms)``: the first step's wall time
+    (the kernels' build or load included) and the eager steps' mean ms (None
+    without them)."""
     dev = default_device(device)
     ps, i0 = (pipeline.init(cfg, device=dev), 0) if start is None else start
     n_polish = n_warm - n_eager
     if not i0 < n_polish:
         raise ValueError(f"start frame {i0} is not before the eager steps ({n_polish})")
     t0 = time.perf_counter()
-    ps, _ = pipeline.step(ps, frames[i0], cfg)
+    ps, _ = pipeline.step(ps, frames[i0], cfg, run_slam)
     _sync(dev)
     compile_s = time.perf_counter() - t0
-    ps = pipeline.maybe_polish(ps, i0, cfg)
+    ps = pipeline.maybe_polish(ps, i0, cfg, run_slam)
     for i in range(i0 + 1, n_polish):
-        ps, _ = pipeline.step(ps, frames[i], cfg)
-        ps = pipeline.maybe_polish(ps, i, cfg)
+        ps, _ = pipeline.step(ps, frames[i], cfg, run_slam)
+        ps = pipeline.maybe_polish(ps, i, cfg, run_slam)
     _sync(dev)
     eager_ms = None
     if n_eager:
         t0 = time.perf_counter()
         for i in range(n_polish, n_warm):
-            ps, _ = pipeline.step(ps, frames[i], cfg)
+            ps, _ = pipeline.step(ps, frames[i], cfg, run_slam)
         _sync(dev)
         eager_ms = (time.perf_counter() - t0) / n_eager * 1000
     return ps, compile_s, eager_ms
 
 
-def run_scan(ps, imgs: torch.Tensor, cfg: SlamConfig):
-    """``step`` over the frames of ``imgs`` [T, H, W] from ``ps``. Returns
-    (final state, (mean_reproj_err [T], dropped obs rows [T])), both
-    stacked on the device."""
+def run_scan(ps, imgs: torch.Tensor, cfg: SlamConfig, run_slam: bool = True, keep=()):
+    """``step`` (with ``run_slam``) over the frames of ``imgs`` [T, H, W]
+    from ``ps``. Returns (final state, (mean_reproj_err [T], dropped obs
+    rows [T], then metric k [T] for each name k of ``keep``)), all stacked
+    on the device."""
     errs, drops = [], []
+    kept = {k: [] for k in keep}
     for img in imgs:
-        ps, met = pipeline.step(ps, img, cfg)
+        ps, met = pipeline.step(ps, img, cfg, run_slam)
         errs.append(met["mean_reproj_err"])
         drops.append(met["fast_obs_dropped"] + met["slow_obs_dropped"]
                      + met["reproject_obs_dropped"])
-    return ps, (torch.stack(errs), torch.stack(drops))
+        for k in keep:
+            kept[k].append(met[k])
+    return ps, (torch.stack(errs), torch.stack(drops), *(torch.stack(v) for v in kept.values()))
 
 
 def live(ps, frames, cfg: SlamConfig):

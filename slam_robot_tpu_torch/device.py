@@ -14,6 +14,9 @@ TF32 off for cuBLAS and for cuDNN (cuDNN defaults to TF32).
 
 from __future__ import annotations
 
+import threading
+import time
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -84,7 +87,54 @@ def host(t: torch.Tensor):
     return SYNCS.read(t)
 
 
+class SpanClock(Tally):
+    """Host wall ms by span name, added while ``on`` (off by default): each
+    :func:`span` adds the time from entering it to leaving it; nested spans
+    count in each enclosing one. ``calls`` counts the spans left."""
+
+    def __init__(self):
+        super().__init__()
+        self.on = False
+        self.calls = {}
+        self._starts = threading.local()
+
+    def read(self) -> dict:
+        return dict(self.counts)
+
+    def reset(self) -> None:
+        super().reset()
+        self.calls = {}
+
+    def enter(self) -> None:
+        self._starts.__dict__.setdefault("stack", []).append(time.perf_counter())
+
+    def leave(self, name: str) -> None:
+        self.add(name, 1e3 * (time.perf_counter() - self._starts.stack.pop()))
+        self.calls[name] = self.calls.get(name, 0) + 1
+
+
+# host ms by span (tools/profile_trace turns it on for an unprofiled pass)
+SPAN_MS = SpanClock()
+
+
+class _Span(torch.profiler.record_function):
+    """``record_function`` that also feeds :data:`SPAN_MS` while it is on."""
+
+    def __enter__(self):
+        self._timed = SPAN_MS.on
+        if self._timed:
+            SPAN_MS.enter()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            if self._timed:
+                SPAN_MS.leave(self.name)
+
+
 def span(name: str):
-    """A named range for ``torch.profiler`` traces (a function decorator);
-    costs ~10 us a call when no profiler runs."""
-    return torch.profiler.record_function(name)
+    """A named range for ``torch.profiler`` traces and :data:`SPAN_MS` (a
+    function decorator); costs ~10 us a call when no profiler runs."""
+    return _Span(name)

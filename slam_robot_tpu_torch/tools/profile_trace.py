@@ -1,0 +1,374 @@
+"""A device trace of the headline bench's scan, with device time by
+category and by kernel, and host time by the step's spans.
+
+Port of the JAX package's ``tools/profile_trace.py``. It builds the
+bench's mid-sweep state (``bench.bootstrap``: 96 warm frames, cached with
+``utils/checkpoint`` in the temporary directory, one file a checkout, so
+that a second run skips the warm),
+times one unprofiled pass of the scan's 64 frames, then traces one more
+pass with ``torch.profiler`` and prints:
+
+- the total device self time, a frame;
+- the device busy share: that time over the unprofiled pass's wall time
+  (the profiler slows the host, so its own wall time would overstate it);
+- device ms a frame by category (:data:`CATEGORIES`, the counterparts of
+  the original's ``hlo_stats`` categories);
+- the top kernels (us total, us a frame, name);
+- host ms a frame by the step's spans (``device.span``), read on the host's
+  clock during the unprofiled pass (:class:`SpanTimer`): the control time
+  that the original's one-program scan hid in its ``while`` overhead;
+- the profiled launches of the hand-written kernels beside the port's own
+  launch counters over the same pass.
+
+On the card the profiled pass traces device activity only (CUPTI): with
+the host's op events a pass of ~1.5M launches takes many minutes to read
+back. The trace that ``trace_detail`` re-reads (Chrome JSON in ``--out``,
+default ``torchtrace_<checkout>/trace.json`` in the temporary directory) is one more pass over the first
+:data:`DETAIL_FRAMES` frames with the host's operators, launches and spans
+as well, so that each kernel can be put in the span that launched it. On
+the CPU (``--device cpu``, for the tests) the "device" rows are the CPU's
+operator events, and the profiled pass is the one exported.
+
+    python -m slam_robot_tpu_torch.tools.profile_trace [--refresh-state] [--top 40] [--frames 64]
+
+Without a CUDA device (and without ``--device cpu``) it exits 1 and prints
+no result line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import functools
+import json
+import os
+import re
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity
+
+from slam_robot_tpu_torch import bench
+from slam_robot_tpu_torch.config import SlamConfig
+from slam_robot_tpu_torch.device import SPAN_MS
+from slam_robot_tpu_torch.models import pipeline
+from slam_robot_tpu_torch.tools import profiling
+from slam_robot_tpu_torch.utils import benchscene, checkpoint
+
+TRACE_DIR = profiling.scratch_path("torchtrace")
+N_WARM, N_TIMED = 96, 64
+# frames of the exported trace on the card, which also holds the host's
+# operators, launches and spans (~10^5 events a frame)
+DETAIL_FRAMES = 2
+# beside the trace: the port's launch counters over the exported pass
+LAUNCHES_FILE = "launches.json"
+
+CATEGORIES = ("newton_track", "pyramid_flat", "other hand-written kernels", "gather and index",
+              "gemm/gemv and bmm", "elementwise", "reductions", "scatter and index_put_",
+              "memcpy and memset", "other")
+
+# the __global__ functions behind the main path's two hand-written entry
+# points (slam_robot_tpu_torch/csrc): B1's newton_track, B2's pyramid_flat
+B1_KERNELS = ("track_kernel",)
+B2_KERNELS = ("pyramid_tiles_kernel", "pyramid_walk_kernel")
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+
+# PyTorch's own operators and kernels by name (the CPU's aten:: operator
+# names and the card's kernel names), tried in this order
+_RULES = (
+    ("memcpy and memset", r"^Memcpy|^Memset|^aten::(copy_|fill_|zero_|zeros_like|clone|"
+                          r"_to_copy|contiguous)$|direct_copy_kernel|FillFunctor"),
+    ("scatter and index_put_", r"index_put|scatter|index_add|indexing_backward|put_"),
+    ("gather and index", r"index|gather|take|masked_select|embedding"),
+    ("gemm/gemv and bmm", r"gemm|gemv|bmm|cublas|cutlass|xmma|dot_kernel|^aten::(mm|addmm|"
+                          r"mv|dot|matmul|baddbmm|addmv)$"),
+    ("reductions", r"reduce_kernel|scan|^aten::(sum|mean|max|min|amax|amin|argmax|argmin|"
+                   r"any|all|prod|norm|linalg_vector_norm|cumsum|std|var)$"),
+    ("elementwise", r"elementwise|^aten::(add|sub|mul|div|neg|abs|sqrt|rsqrt|exp|log|pow|"
+                    r"where|clamp|clamp_min|clamp_max|maximum|minimum|eq|ne|lt|le|gt|ge|"
+                    r"logical_and|logical_or|logical_not|logical_xor|bitwise_and|bitwise_or|"
+                    r"bitwise_not|bitwise_xor|floor|ceil|round|trunc|sin|cos|atan2|sign|"
+                    r"remainder|fmod|reciprocal|sigmoid|tanh|square|lerp|addcmul|addcdiv|"
+                    r"masked_fill|rsub|floor_divide|hypot|copysign|isnan|isfinite|"
+                    r"nan_to_num)_?$"),
+)
+
+
+@functools.cache
+def hand_written_kernels() -> frozenset:
+    """Every ``__global__`` function in the port's CUDA sources."""
+    names = set()
+    for src in sorted(_CSRC.glob("*.cu")):
+        text = src.read_text()
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                text))
+    return frozenset(names)
+
+
+def category(name: str) -> str:
+    """The category of a device row (a kernel, copy or operator name)."""
+    mangled = re.match(r"_Z(\d+)", name)   # CUPTI may give a kernel's mangled name
+    if mangled:
+        base = name[mangled.end():mangled.end() + int(mangled.group(1))]
+    else:
+        # the port's kernels sit in an anonymous namespace of their source
+        base = re.sub(r"^(void\s+)?(\(anonymous namespace\)::)?", "", name)
+        base = base.split("(")[0].split("<")[0].strip()
+    if base in B1_KERNELS:
+        return "newton_track"
+    if base in B2_KERNELS:
+        return "pyramid_flat"
+    if base in hand_written_kernels():
+        return "other hand-written kernels"
+    for cat, pattern in _RULES:
+        if re.search(pattern, name):
+            return cat
+    return "other"
+
+
+def _self_us(e, dev: torch.device) -> float:
+    if dev.type != "cuda":
+        return e.self_cpu_time_total
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_rows(averages, dev: torch.device) -> list:
+    """(name, count, self us) of the trace's device work from its
+    ``key_averages()``: on the card its kernels, copies and sets; on the CPU
+    its operators. Spans (``record_function`` ranges, which cover the same
+    work) are left out."""
+    want = torch.autograd.DeviceType.CUDA if dev.type == "cuda" else torch.autograd.DeviceType.CPU
+    return [(e.key, e.count, _self_us(e, dev)) for e in averages
+            if e.device_type == want and not getattr(e, "is_user_annotation", False)]
+
+
+def split(rows) -> tuple[float, dict]:
+    """(total self us, {category: self us}) of ``device_rows``."""
+    cats = dict.fromkeys(CATEGORIES, 0.0)
+    for name, _, us in rows:
+        cats[category(name)] += us
+    return sum(us for _, _, us in rows), cats
+
+
+class SpanTimer:
+    """Host wall ms by span while it is entered: turns ``device.SPAN_MS`` on
+    (every ``device.span`` adds its host time, nested spans in each
+    enclosing one) and leaves ``ms`` and ``calls`` by span name. No profiler
+    runs, so it costs about a microsecond a span."""
+
+    def __enter__(self):
+        SPAN_MS.reset()
+        SPAN_MS.on = True
+        return self
+
+    def __exit__(self, *exc):
+        SPAN_MS.on = False
+        self.ms, self.calls = SPAN_MS.read(), dict(SPAN_MS.calls)
+        return False
+
+
+# idle seconds before and after a traced run inside the trace's window: the
+# tracer keeps only device activity whose time stamps fall inside it, and a
+# card's stamps may run early against the host's (a kernel 2-8 ms before its
+# launch, in fresh processes). Late in a long process a host+device pass
+# still lost its first ~77 kernels with a 1 s lead, while every kernel it
+# kept started after its launch: that loss is not the window's, and
+# trace_detail reports it
+LEAD_S, TAIL_S = 1.0, 0.25
+
+
+def _traced(run, dev: torch.device, activities):
+    """The profiler after one traced ``run()``. The profiler warms up on a
+    first, discarded step (a few small launches), and the run sits
+    :data:`LEAD_S` after the traced window's start and :data:`TAIL_S`
+    before its end."""
+    warm = torch.zeros(8, device=dev)
+    with torch.profiler.profile(activities=activities,
+                                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                                 repeat=1)) as prof:
+        for _ in range(4):
+            warm.add_(1.0)
+        profiling.sync(dev)
+        prof.step()
+        time.sleep(LEAD_S)
+        run()
+        profiling.sync(dev)
+        time.sleep(TAIL_S)
+        prof.step()
+    return prof
+
+
+def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
+            top: int = 40, detail=None, detail_units: int | None = None) -> dict:
+    """``run()`` once on the host's clock (with :class:`SpanTimer`), then
+    once under ``torch.profiler``. Returns the figures per unit (``n_units``
+    frames or iterations in one ``run``): wall ms, device ms, busy share,
+    device ms by category, the ``top`` device rows, host ms by span, the
+    launches of B1 and B2 in the trace and by the port's counters, the
+    profiled pass's wall ms, and every device row's count (``counts``).
+
+    With ``out_dir``, writes the operator table there as
+    ``profile_device.txt`` and a Chrome trace as ``trace.json`` for
+    ``trace_detail``: on the CPU the profiled pass's; on the card one more
+    pass, of ``detail()`` (``detail_units`` units; default ``run``), traced
+    with the host's operators, launches and spans beside the device's work,
+    and exported without reading it back (``trace_units``, and the port's
+    counters over that pass as ``trace_counted_launches``)."""
+    profiling.sync(dev)
+    with SpanTimer() as spans:
+        t0 = time.perf_counter()
+        run()
+        profiling.sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
+    before = bench.counts()
+    t0 = time.perf_counter()
+    prof = _traced(run, dev, acts)
+    profiled_ms = 1e3 * (time.perf_counter() - t0 - LEAD_S - TAIL_S)
+    counters = {k: v - before[k] for k, v in bench.counts().items()}
+    averages = prof.key_averages()
+    rows = device_rows(averages, dev)
+    total_us, cats = split(rows)
+    traced = collections.Counter()
+    for name, count, _ in rows:
+        traced[category(name)] += count
+    rows.sort(key=lambda r: -r[2])
+    out = {
+        "units": n_units, "wall_ms": wall_ms / n_units, "profiled_wall_ms": profiled_ms / n_units,
+        "device_ms": total_us / 1e3 / n_units, "busy_share": total_us / 1e3 / wall_ms,
+        "by_category_ms": {k: v / 1e3 / n_units for k, v in cats.items()},
+        "top": [{"us_total": us, "us_per_unit": us / n_units, "count": n, "name": name,
+                 "category": category(name)} for name, n, us in rows[:top]],
+        "counts": {name: n for name, n, _ in rows},
+        "device_ops": sum(n for _, n, _ in rows),
+        "kernel_launches": sum(n for name, n, _ in rows
+                               if not name.startswith(("Memcpy", "Memset"))),
+        "host_ms_by_span": {k: v / n_units for k, v in sorted(spans.ms.items())},
+        "span_calls": dict(spans.calls),
+        "traced_launches": {k: traced[k] for k in ("newton_track", "pyramid_flat")},
+        "counted_launches": {k: counters[k] for k in ("newton_track", "pyramid_flat")},
+        "syncs": counters["syncs"] / n_units,
+    }
+    if out_dir is not None:
+        os.makedirs(out_dir, exist_ok=True)
+        out["trace"] = os.path.join(out_dir, "trace.json")
+        sort = "self_device_time_total" if dev.type == "cuda" else "self_cpu_time_total"
+        with open(os.path.join(out_dir, "profile_device.txt"), "w") as f:
+            f.write(averages.table(sort_by=sort, row_limit=60))
+        if dev.type == "cuda":
+            before = bench.counts()
+            prof = _traced(detail or run, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            counted = {k: v - before[k] for k, v in bench.counts().items()}
+            out["trace_units"] = detail_units or n_units
+        else:
+            counted, out["trace_units"] = counters, n_units
+        out["trace_counted_launches"] = {k: counted[k] for k in ("newton_track", "pyramid_flat")}
+        prof.export_chrome_trace(out["trace"])
+        with open(os.path.join(out_dir, LAUNCHES_FILE), "w") as f:
+            json.dump({"units": out["trace_units"],
+                       "counted_launches": out["trace_counted_launches"]}, f)
+    return out
+
+
+def report(p: dict, unit: str, emit=print) -> None:
+    """The original's printout of :func:`profile`'s figures: ``unit`` is
+    ``frame`` or ``GN iter``."""
+    n = p["units"]
+    emit(f"\ntotal device self time: {p['device_ms'] * n:.1f} ms "
+         f"({p['device_ms']:.3f} ms/{unit})")
+    emit(f"device busy share: {100 * p['busy_share']:.2f} % of the unprofiled "
+         f"{p['wall_ms']:.2f} ms/{unit} (profiled pass {p['profiled_wall_ms']:.2f} ms/{unit}); "
+         f"{p['device_ops'] / n:.1f} device ops/{unit}")
+    emit(f"\n-- by category (ms/{unit}) --")
+    for k, v in sorted(p["by_category_ms"].items(), key=lambda kv: -kv[1]):
+        emit(f"{k:40s} {v:8.3f}")
+    emit(f"\n-- top {len(p['top'])} ops (us total | us/{unit} | name) --")
+    for r in p["top"]:
+        emit(f"{r['us_total']:10.0f} {r['us_per_unit']:8.1f}  [{r['category'][:18]:18s}] "
+             f"{r['name'][:110]}")
+    emit(f"\n-- host ms/{unit} by span (unprofiled pass; nested spans count in each) --")
+    for k, v in sorted(p["host_ms_by_span"].items(), key=lambda kv: -kv[1]):
+        emit(f"{k:40s} {v:8.3f}")
+    emit(f"launches in the trace {json.dumps(p['traced_launches'])}, by the port's counters "
+         f"{json.dumps(p['counted_launches'])}; {p['syncs']:.2f} host syncs/{unit}")
+
+
+def state_cache(cfg: SlamConfig, n_warm: int) -> str:
+    return profiling.scratch_path(f"bench_state_torch_{cfg.image_width}x{cfg.image_height}"
+                                  f"_{cfg.max_features}_w{n_warm}") + ".pt"
+
+
+def get_state(cfg: SlamConfig, frames, n_warm: int, dev: torch.device, refresh: bool = False,
+              cache: str | None = None, emit=print):
+    """The bench's mid-sweep state after ``n_warm`` warm frames, read from
+    ``cache`` (a ``utils/checkpoint`` file) when it is there and fits, else
+    bootstrapped and saved there."""
+    cache = cache or state_cache(cfg, n_warm)
+    template = pipeline.init(cfg, device=dev)
+    if not refresh and os.path.exists(cache):
+        try:
+            ps = checkpoint.restore(template, cache, dev)
+        except (ValueError, KeyError) as e:
+            emit(f"state: cache {cache} does not fit ({e}); bootstrapping")
+        else:
+            emit(f"state: loaded cache {cache}")
+            return ps
+    t0 = time.perf_counter()
+    ps, _, _ = bench.bootstrap(cfg, frames, n_warm, dev, n_eager=0)
+    profiling.sync(dev)
+    emit(f"state: bootstrapped in {time.perf_counter() - t0:.0f}s")
+    checkpoint.save(ps, cache)
+    return ps
+
+
+def trace_scan(ps, imgs: torch.Tensor, cfg: SlamConfig, dev: torch.device,
+               out_dir: str | None = TRACE_DIR, top: int = 40, first_pass: bool = True,
+               emit=print) -> dict:
+    """The scan's first pass over ``imgs`` from ``ps`` (left out without
+    ``first_pass``, when the caller has just run these frames from ``ps``),
+    then :func:`profile` of one more; prints and returns its figures."""
+    if first_pass:
+        t0 = time.perf_counter()
+        bench.run_scan(ps, imgs, cfg)
+        profiling.sync(dev)
+        emit(f"first pass: {time.perf_counter() - t0:.0f}s")
+    k = min(DETAIL_FRAMES, imgs.shape[0])
+    p = profile(lambda: bench.run_scan(ps, imgs, cfg), dev, imgs.shape[0], out_dir, top,
+                detail=lambda: bench.run_scan(ps, imgs[:k], cfg), detail_units=k)
+    emit(f"scan: {p['wall_ms']:.2f} ms/frame")
+    report(p, "frame", emit)
+    if out_dir is not None:
+        emit(f"trace: {p['trace']} ({p['trace_units']} frames)")
+    return p
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--refresh-state", action="store_true")
+    ap.add_argument("--top", type=int, default=40)
+    ap.add_argument("--frames", type=int, default=N_TIMED, help="frames a pass")
+    ap.add_argument("--out", default=TRACE_DIR, help="directory for trace.json")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: cuda; cpu for a CPU run)")
+    ap.add_argument("--small", action="store_true",
+                    help="160x120, depth 4, 96 features, 24 warm frames")
+    args = ap.parse_args(argv)
+    dev = profiling.open_device(args.device, "profile_trace")
+    if dev is None:
+        return 1
+    cfg = profiling.SMALL if args.small else SlamConfig()
+    n_warm = 24 if args.small else N_WARM
+    frames = benchscene.make_frames(cfg, n_warm + args.frames, device=dev)
+    print(f"device: {profiling.device_line(dev)}", flush=True)
+    ps = get_state(cfg, frames, n_warm, dev, refresh=args.refresh_state,
+                   emit=lambda s: print(s, flush=True))
+    trace_scan(ps, torch.stack(frames[n_warm:]), cfg, dev, args.out, args.top,
+               emit=lambda s: print(s, flush=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -79,7 +79,10 @@ def test_port_modules_import_nothing_of_the_jax_package():
         "             'parallel.multi_robot', 'parallel.dryrun', 'tools.calibrate',\n"
         "             'tools.bench_suite', 'ops.obs_shards', 'ops.klt', 'ops.brute',\n"
         "             'io.native', 'io.v4l2', 'utils.jpeg', 'utils.liveview', 'bench',\n"
-        "             'tools.probe_errfresh', 'tools.probe_seed1'):\n"
+        "             'tools.probe_errfresh', 'tools.probe_seed1', 'tools.profiling',\n"
+        "             'tools.profile_tpu', 'tools.profile_step', 'tools.profile_tracker',\n"
+        "             'tools.profile_scan', 'tools.probe_live', 'tools.profile_trace',\n"
+        "             'tools.trace_detail', 'tools.profile_cg', 'tools.profile_cg_sharded'):\n"
         "    assert 'slam_robot_tpu_torch.' + want in names, (want, names)\n"
         "print(len(names))\n"
     )
