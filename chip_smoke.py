@@ -52,9 +52,12 @@ Phases, one line each (phases 2 and 3 several):
      against its plain version and the original's expected values; the
      kernels whose original inputs are constant (the batched product, the
      masked copy, every loop and branch) pass again on seeded non-uniform
-     inputs (the modules' SEEDED cases); then every case is timed (kernel, plain version, the one-call PyTorch
-     equivalent where there is one) beside its bound; the fused two-level
-     pyramid against B2's three calls for the same two levels, and the
+     inputs (the modules' SEEDED cases); then every case is timed beside
+     its bound: the kernel and the plain version by CUDA events (200
+     back-to-back calls: the host's call and the device), and where there
+     is a one-call PyTorch equivalent, it too by events, then it and the
+     kernel by CUDA-graph replay (the device alone), in turns; the fused
+     two-level pyramid against B2's three calls for the same two levels, and the
      Newton skeleton against B1 on the skeleton's inputs, each also by
      device time (CUDA-graph replay, no host launch path), and the two
      device-time ratios
@@ -151,18 +154,22 @@ Phases, one line each (phases 2 and 3 several):
      launches a stage), profile_tracker (events and graph replay),
      probe_live (rtt and every ported variant over 2 frames, each final
      state equal to eager's bit for bit), profile_scan (default and noslam,
-     one pass of 8 frames), profile_trace over 2 frames (device busy share,
-     categories, top kernels, host ms by span) and trace_detail on its
-     export (2 frames with the host's spans; python -m, beside profile_cg;
-     B1's and B2's rows against the port's counters and the launches that
-     lost their kernel, printed), profile_cg at config 5 in
-     both layouts, profile_cg_sharded (1, 2, 4 and 8 shards against one,
-     phase 11's tolerances, and the projection from the padded solve's
-     rate); fails on a non-finite number, a busy share over 100 % (by more
-     than the profiler's time stamps, 200 ns a device operation), B1's or
-     B2's launches in the profile other than the port's counters over the
-     same pass, B1 or B2 rows missing from the export or outside the span
-     that launches them (track_sweep, pyramid), or a variant's state apart
+     one pass of 8 frames); then, in one fresh process (profile_trace
+     --job: a long-lived process loses kernels from its traces, ROADMAP
+     C6), profile_trace over 2 frames (its traced pass first, which pays
+     for the process's first launches; device busy share, categories, top
+     kernels, host ms by span) and trace_detail on its export (2 frames
+     with the host's spans; python -m, beside the next two: B1's and B2's
+     rows against the port's counters, and the launches that lost their
+     kernel), profile_cg at config 5 in both layouts, and
+     profile_cg_sharded (1, 2, 4 and 8 shards against one, phase 11's
+     tolerances, and the projection from the padded solve's rate); fails
+     on a non-finite number, a busy share over 100 % (by more than the
+     profiler's time stamps, 200 ns a device operation), B1's or B2's
+     launches in the profile, or their rows in the export, other than the
+     port's counters over the same pass, B1 or B2 rows outside the span
+     that launches them (track_sweep, pyramid), a failed or timed-out
+     fresh process, or a variant's state apart
 
 The JSON line before the card's line holds the main path's, the replay
 runs', every probe case's, the closed loop's, the parity replays', the
@@ -1162,9 +1169,20 @@ def phase_probes():
         got, plain = c.run(*args), c.plain(*args)
         torch.cuda.synchronize()
         err = tools.max_abs_err(got, plain)
-        ms = _time_ms(lambda: c.run(*args), 200)
+
+        def run():
+            return c.run(*args)
+
+        # a case with a library call: both by events (the host's call and the
+        # device) and by graph replay (the device alone), in turns
+        ms = _time_ms(run, 200)
+        graph_ms = lib_ms = lib_graph_ms = None
+        if c.library is not None:
+            lib_call = c.library(*args)
+            lib_ms = _time_ms(lib_call, 200)
+            lib_graph_ms = _graph_ms(lib_call)
+            graph_ms = _graph_ms(run)
         plain_ms = _time_ms(lambda: c.plain(*args), 20)
-        lib_ms = _time_ms(c.library(*args), 200) if c.library is not None else None
         n_bytes = _case_bytes(c, args, got)
         n_flops = int(c.flops(*args)) if c.flops is not None else 0
         bound_ms, bound_by = _bound(n_bytes, n_flops)
@@ -1172,8 +1190,13 @@ def phase_probes():
                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
                         "flops": n_flops}
-        lib = f", library {lib_ms:.4f} ms" if lib_ms is not None else ""
-        print(f"phase 7 {c.name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, bound "
+        lib = ""
+        if c.library is not None:
+            rows[c.name].update(graph_ms=graph_ms, library_graph_ms=lib_graph_ms)
+            lib = (f" ({graph_ms:.5f} by graph replay), library {lib_ms:.4f} ms "
+                   f"({lib_graph_ms:.5f}); kernel/library {ms / lib_ms:.3f}x by events (the "
+                   f"host's call), {graph_ms / lib_graph_ms:.3f}x by graph replay (the device)")
+        print(f"phase 7 {c.name}: kernel {ms:.4f} ms{lib}, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms by {bound_by} ({n_bytes} B, {n_flops} flop), "
               f"max_abs_err {err:.3g}", flush=True)
 
@@ -1246,6 +1269,7 @@ def phase_probes():
             "max_abs_err": max(r["max_abs_err"] for _, r in mine),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "graph_ms": first.get("graph_ms"), "library_graph_ms": first.get("library_graph_ms"),
             "timed": mine[0][0], "cases": [case for case, _ in mine]})
     print(f"phase 7 probes: {n_pass} cases passed on the card in {check_s:.2f} s, "
           f"{len(seeded)} seeded cases passed, launches {launches}, sep5_reflect101 "
@@ -2818,8 +2842,8 @@ def phase_bench(start, card: str):
 # (the script's time limit): frames probe_live runs a variant,
 # profile_scan times, profile_trace traces
 LIVE_FRAMES, SCAN_FRAMES, TRACE_FRAMES = 2, 8, 2
-# seconds trace_detail may take beyond profile_cg
-DETAIL_TIMEOUT_S = 300
+# seconds phase 14's fresh process (profile_trace --job) may take
+JOB_TIMEOUT_S = 600
 
 
 def _numbers(x, path="") -> list:
@@ -2857,6 +2881,20 @@ def _gate_profile(name: str, p: dict) -> None:
                              f"named track or pyramid: {rows}")
 
 
+def _gate_export(shortfall: dict | None, spans: dict) -> None:
+    """The exported trace (the detail pass, host events too): B1's and B2's
+    rows equal to the port's counters over that pass (``shortfall``,
+    {kernel: [rows, counted]} from trace_detail), each row in the span that
+    launched it (``spans``: {category: {span: rows}})."""
+    if shortfall is None or set(shortfall) != {"newton_track", "pyramid_flat"} \
+            or any(rows != counted for rows, counted in shortfall.values()):
+        raise AssertionError(f"trace_detail: B1/B2 rows in the exported trace differ from the "
+                             f"port's counters over the exported pass: {shortfall}")
+    if set(spans.get("newton_track", {})) != {"track_sweep"} \
+            or set(spans.get("pyramid_flat", {})) != {"pyramid"}:
+        raise AssertionError(f"trace_detail: B1/B2 rows missing or outside their spans: {spans}")
+
+
 def phase_profilers(warm, card: str):
     """Phase 14: the port's nine profiling tools (slam_robot_tpu_torch/tools,
     ports of the JAX package's tools/profile_*.py, probe_live.py and
@@ -2865,22 +2903,19 @@ def phase_profilers(warm, card: str):
     summary)."""
     import contextlib
     import io
-    import os
     from pathlib import Path
 
     import torch
 
     from slam_robot_tpu_torch import SlamConfig
-    from slam_robot_tpu_torch.ops import ba_cg
-    from slam_robot_tpu_torch.tools import (probe_live, profile_cg, profile_cg_sharded,
-                                            profile_scan, profile_step, profile_tpu,
-                                            profile_trace, profile_tracker)
+    from slam_robot_tpu_torch.tools import (probe_live, profile_scan, profile_step,
+                                            profile_tpu, profile_trace, profile_tracker)
     from slam_robot_tpu_torch.utils.benchscene import make_frames
 
     t_phase = time.time()
     dev = torch.device("cuda")
     cfg = SlamConfig()
-    frames = make_frames(cfg, BENCH_WARM + SCAN_FRAMES, device=dev)
+    frames = make_frames(cfg, SCAN_FRAMES, device=dev, start=BENCH_WARM)  # 96-103
     summary = {}
     times = {}
     _reset_counts()
@@ -2901,71 +2936,54 @@ def phase_profilers(warm, card: str):
         return res
 
     tool("profile_tpu", lambda emit: profile_tpu.run(cfg, dev, n_max=1, emit=emit))
-    tool("profile_step", lambda emit: profile_step.run(warm, frames[BENCH_WARM], cfg, dev,
-                                                       n_max=1, emit=emit))
+    tool("profile_step", lambda emit: profile_step.run(warm, frames[0], cfg, dev, n_max=1,
+                                                       emit=emit))
     tool("profile_tracker", lambda emit: profile_tracker.run(dev, cfg.max_features,
                                                              cfg.patch_size, emit=emit))
     live = tool("probe_live", lambda emit: probe_live.probe(
-        warm, frames[BENCH_WARM:BENCH_WARM + LIVE_FRAMES], cfg,
+        warm, frames[:LIVE_FRAMES], cfg,
         ("rtt",) + probe_live.STEPPING + ("bigargs",), passes=0, emit=emit))
     if not all(live["states_equal_eager"].values()) or \
             set(live["states_equal_eager"]) != set(probe_live.STEPPING):
         raise AssertionError(f"probe_live: a variant's final state differs from eager's: "
                              f"{live['states_equal_eager']}")
-    # profile_scan's first pass stands as its time (reps=0); profile_trace
-    # then needs none of its own: the same frames from the same state
+    # profile_scan's first pass stands as its time (reps=0); the fresh
+    # process's trace then makes none of its own
     tool("profile_scan", lambda emit: [
-        profile_scan.run_variant(name, cfg, frames, BENCH_WARM, dev, run_slam, start=warm,
-                                 reps=0, emit=emit)
+        profile_scan.run_variant(name, cfg, frames, 0, dev, run_slam, start=warm, reps=0,
+                                 emit=emit)
         for name, run_slam in (("default", True), ("noslam", False))])
-    out_dir = "build/profile14"
-    p = tool("profile_trace", lambda emit: profile_trace.trace_scan(
-        warm, torch.stack(frames[BENCH_WARM:BENCH_WARM + TRACE_FRAMES]), cfg, dev, out_dir,
-        top=15, first_pass=False, emit=emit))
-    _gate_profile("profile_trace", p)
+    # the profiled passes and the config-5 tools in one fresh process
+    # (ROADMAP C6): the job goes under the checkout's build/, phase 13's warm
+    # state with it
+    job_dir = str(Path(__file__).resolve().parent / "build" / "profile14")
+    profile_trace.write_job(job_dir, warm, torch.stack(frames[:TRACE_FRAMES]), cfg, top=15,
+                            cg={"layouts": ["scatter", "padded"], "gn_iters": 5, "cg_iters": 20,
+                                "top": 10, "small": False, "shards": [1, 2, 4, 8]})
+    t_job = time.perf_counter()
+    job = profile_trace.run_job(job_dir, dev, JOB_TIMEOUT_S)
+    times["fresh process"] = time.perf_counter() - t_job
+
+    def replayed(r):
+        def fn(emit):
+            for line in r["lines"]:
+                emit(line)
+            return r["figures"]
+        return fn
+
+    for name, r in job["tools"].items():
+        tool(name, replayed(r))
+        times[name] = r["s"]
+    for name in ("profile_trace", "profile_cg scatter", "profile_cg padded"):
+        _gate_profile(name, summary[name])
+    p = summary["profile_trace"]
     want = {"pyramid_flat": 2 * TRACE_FRAMES}
     if p["counted_launches"]["pyramid_flat"] != want["pyramid_flat"] \
             or not p["counted_launches"]["newton_track"]:
         raise AssertionError(f"profile_trace: the traced pass launched "
                              f"{p['counted_launches']}: want {want} and newton_track > 0")
-    # trace_detail reads the export in a process of its own (as a user runs
-    # it, python -m) while profile_cg runs on the card
-    root = Path(__file__).resolve().parent
-    detail_json = os.path.join(out_dir, "detail.json")
-    t_detail = time.perf_counter()
-    with open(detail_json, "w") as f:
-        reader = subprocess.Popen([sys.executable, "-m", "slam_robot_tpu_torch.tools.trace_detail",
-                                   "--trace", os.path.abspath(p["trace"]), "--json"],
-                                  stdout=f, cwd=root)
-    try:
-        big = profile_cg.problem(False, dev)
-        nf = big[0].shape[0]
-        for layout in ("scatter", "padded"):
-            cgc = ba_cg.CGConfig(max_free_frames=nf, gn_iters=5, cg_iters=20, precond="diag",
-                                 layout=layout)
-            pc = tool(f"profile_cg {layout}", lambda emit: profile_cg.run(
-                big, cgc, dev, top=10, out_dir=None, emit=emit))
-            _gate_profile(f"profile_cg {layout}", pc)
 
-        def sharded(emit):
-            out = profile_cg_sharded.run(dev, (1, 2, 4, 8), measured=summary[
-                "profile_cg padded"]["gn_iters_per_s"], big=big, emit=lambda s: None)
-            for r in out["validation"]:
-                emit(json.dumps(r))
-            emit(json.dumps({k: out[k] for k in ("projection_basis", "projection")}))
-            return out
-
-        sh = tool("profile_cg_sharded", sharded)
-        rc = reader.wait(timeout=DETAIL_TIMEOUT_S)
-    finally:
-        if reader.poll() is None:
-            reader.kill()
-            reader.wait()
-    times["trace_detail (beside profile_cg)"] = time.perf_counter() - t_detail
-    if rc != 0:
-        raise AssertionError(f"trace_detail exited {rc} on {p['trace']}")
-    with open(detail_json) as f:
-        td = json.load(f)
+    td = job["detail"]
     rows = td["rows"]
     bad = [(k, v) for k, v in _numbers(td) if not math.isfinite(v)]
     if bad:
@@ -2977,17 +2995,12 @@ def phase_profilers(warm, card: str):
             spans.setdefault(r["cat"], {}).setdefault(k, 0)
             spans[r["cat"]][k] += v
     # the exported trace (the detail pass, host events too): B1's and B2's
-    # rows, each in the span that launched it. Their counts beside the
-    # port's counters over that pass are printed, not gated: on the card
-    # this trace has been seen to lose a frame's B2 pair, where the
-    # device-only profile above, which is gated, kept them all. The audit
-    # says which launches lost their kernel and how the device's time
-    # stamps sit against the host's
-    if set(spans.get("newton_track", {})) != {"track_sweep"} \
-            or set(spans.get("pyramid_flat", {})) != {"pyramid"}:
-        raise AssertionError(f"trace_detail: B1/B2 rows missing or outside their spans: {spans}")
+    # rows equal to the port's counters, each in the span that launched it;
+    # the audit says which launches lost their kernel and how the device's
+    # time stamps sit against the host's
     print(f"phase 14 trace_detail: B1/B2 rows against the counters over the exported pass "
           f"{json.dumps(td['shortfall'])}; launches {json.dumps(td['audit'])}", flush=True)
+    _gate_export(td["shortfall"], spans)
     for r in rows[:10]:
         print(f"phase 14 trace_detail: {r['occ']} x {r['name'][:100]} [{r['cat']}] "
               f"{r['us'] / p['trace_units']:.1f} us/frame, spans {r['spans']}", flush=True)
@@ -2995,13 +3008,15 @@ def phase_profilers(warm, card: str):
                                "spans_by_category": spans, "shortfall": td["shortfall"],
                                "audit": td["audit"]}
 
-    for r in sh["validation"]:
+    for r in summary["profile_cg_sharded"]["validation"]:
         if not (r["ok"] and r["cost_rel_err"] <= CG_COST_RTOL
                 and r["trans_max_diff_mm"] <= CG_TRANS_MM):
             raise AssertionError(f"profile_cg_sharded: {json.dumps(r)} misses cost rtol "
                                  f"{CG_COST_RTOL} or {CG_TRANS_MM} mm")
-    del big
     counts = _read_counts()
+    for k, v in job["launches"].items():  # the fresh process's
+        if k in counts:
+            counts[k] += v
     summary["tool_s"] = times
     summary["phase_s"] = time.time() - t_phase
     summary["launches"] = counts

@@ -9,19 +9,32 @@
 //   probe_banded_pair:    probe_mosaic4.py g3 (_banded_pair_grouped)
 //   probe_sample_grouped: probe_mosaic4.py g6 (_sample_grouped)
 //
-// What bounds them on an H100: launch latency. The largest case, g3, writes
-// 16x104x128 float32 (852 KB); p3 is 8 x 13x32x32 multiply-adds.
+// What bounds them on an H100: launch latency. The largest cases, g2 and g3,
+// write 16x104x128 float32 (852 KB); p3 is 8 x 13x32x32 multiply-adds. A launch
+// takes 1-3 us on the device, so a kernel's time is its critical path: the
+// loads in flight before its first store, its blocks spread over the SMs.
 //
-// Design. probe_bmm: one block per batch entry, both operands in shared
-// memory, one thread per output summing over K in order (no cuBLAS).
+// Design. probe_bmm: one warp per output row (F*M warps, kBmmWarps rows of
+// one batch entry a block, so 32 blocks at p3's shape where one block a
+// batch entry made 8). Lane j owns output column j (then j+32, ...): it
+// loads B's column from global memory, 32 k at a time, all loads in flight
+// at once (a warp's loads of one k are one 128-byte row segment), and
+// takes A's row from the lanes with __shfl_sync. Every output is fmaf over
+// k in order from 0. No shared memory and no barrier.
 // probe_band_grad: R(x) selects rows floor(x) and floor(x)+1 of W with
 // weights (1-fx, fx), so with P = R(x) W and D = dP/dx = W[i+x0+1] - W[i+x0]
 // (rows past W read 0, as the band's zeros do):
 //   g = (2y sum(P D), sum(P^2)),  H = [[2y sum(D^2), 2 sum(P D)],
 //                                      [2 sum(P D), 0]],
-// three sums taken by one warp. probe_layout: one thread per output element
-// of a repeat (g1), a broadcast (g2), an iota-masked sum (g4) or a per-lane
-// block transpose (g5). probe_banded_pair: one thread per element of the
+// three sums taken by one warp. probe_layout: one kernel per case, with
+// 32-bit index arithmetic (the entry point refuses 2^31 elements or more):
+// one thread per output element of a repeat (g1), an iota-masked sum (g4)
+// or a per-lane block transpose (g5); the broadcast (g2) copies 16 bytes a
+// thread where W is a multiple of 4 (every aligned float4 of an output row
+// is a float4 of its input row), one element a thread otherwise. On the
+// card one element a thread beat four (g1, g4), g4's G loads ran faster
+// issued together than each behind its lane test, and a shared-memory tile
+// lost to its barrier (g5). probe_banded_pair: one thread per element of the
 // grouped band matrix, built from the same where-expressions as the JAX
 // function, so the result is exact. probe_sample_grouped: the grouping only
 // fed the MXU, so this kernel samples directly: one warp per lane, the
@@ -30,6 +43,9 @@
 // its own (__fmul_rn, __fadd_rn: no contraction into FMAs), which is the
 // plain version's arithmetic; the output is the lane's [[V, V_x], [V_y,
 // V_xy]] blocks.
+#include <climits>
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -41,24 +57,41 @@ using probe::warp_sum;
 enum LayoutCase { kRepeat = 0, kBroadcast = 1, kMaskedSum = 2, kBlockTranspose = 3 };
 
 constexpr int kThreads = 256;
-constexpr int kStaticSmem = 48 * 1024;
+constexpr int kBmmWarps = 4;         // output rows (warps) a block of probe_bmm
+constexpr int kLayoutThreads = 128;  // a block of probe_layout's one-element kernels
+constexpr int kCopyThreads = 256;    // a block of probe_layout's 16-byte broadcast
 constexpr int kWin = 32;    // max window edge of probe_sample_grouped
 constexpr int kLanes = 4;   // lanes (warps) per block of probe_sample_grouped
 
-__global__ void bmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                           float* __restrict__ out, int M, int K, int N) {
-  extern __shared__ float smem[];
-  float* sa = smem;          // [M, K]
-  float* sb = smem + M * K;  // [K, N]
-  const size_t f = blockIdx.x;
-  for (int e = threadIdx.x; e < M * K; e += blockDim.x) sa[e] = a[f * M * K + e];
-  for (int e = threadIdx.x; e < K * N; e += blockDim.x) sb[e] = b[f * K * N + e];
-  __syncthreads();
-  for (int e = threadIdx.x; e < M * N; e += blockDim.x) {
-    const int i = e / N, j = e % N;
+__global__ void __launch_bounds__(kBmmWarps * 32)
+    bmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+               float* __restrict__ out, int M, int K, int N) {
+  const int f = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kBmmWarps + (threadIdx.x >> 5);
+  if (i >= M) return;
+  const float* ai = a + (static_cast<size_t>(f) * M + i) * K;
+  const float* bf = b + static_cast<size_t>(f) * K * N;
+  float* oi = out + (static_cast<size_t>(f) * M + i) * N;
+  for (int j0 = 0; j0 < N; j0 += 32) {
+    const int j = j0 + lane;
+    const float* col = bf + (j < N ? j : N - 1);  // lanes past N compute and drop
     float acc = 0.0f;
-    for (int k = 0; k < K; ++k) acc = fmaf(sa[i * K + k], sb[k * N + j], acc);
-    out[f * M * N + e] = acc;
+    int k0 = 0;
+    for (; k0 + 32 <= K; k0 += 32) {
+      const float av = __ldg(ai + k0 + lane);
+      float bv[32];
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) bv[kk] = __ldg(col + (k0 + kk) * N);
+#pragma unroll
+      for (int kk = 0; kk < 32; ++kk) acc = fmaf(__shfl_sync(0xffffffffu, av, kk), bv[kk], acc);
+    }
+    if (k0 < K) {  // the last K % 32 terms
+      const float av = k0 + lane < K ? __ldg(ai + k0 + lane) : 0.0f;
+      for (int kk = 0; kk < K - k0; ++kk)
+        acc = fmaf(__shfl_sync(0xffffffffu, av, kk), __ldg(col + (k0 + kk) * N), acc);
+    }
+    if (j < N) oi[j] = acc;
   }
 }
 
@@ -95,36 +128,51 @@ __global__ void band_grad_kernel(const float* __restrict__ win,
   }
 }
 
-__global__ void layout_kernel(const float* __restrict__ in, float* __restrict__ out,
-                              int B, int G, int R, int W, int mode) {
-  const int M = G * R;
-  const size_t total = (mode == kRepeat || mode == kMaskedSum)
-                           ? static_cast<size_t>(B) * M
-                           : static_cast<size_t>(B) * M * W;
-  for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       idx < total; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    if (mode == kRepeat) {  // in [B, G] -> out [B, G*R], each value R times
-      const size_t b = idx / M;
-      out[idx] = in[b * G + (idx % M) / R];
-    } else if (mode == kMaskedSum) {  // the same by a G-term masked sum
-      const size_t b = idx / M;
-      const int lane = static_cast<int>(idx % M) / R;
-      float acc = 0.0f;
-      for (int g = 0; g < G; ++g) acc = acc + (lane == g ? in[b * G + g] : 0.0f);
-      out[idx] = acc;
-    } else if (mode == kBroadcast) {  // in [B, R, W] -> out [B, R, G*W]
-      const int GW = G * W;
-      const size_t bm = idx / GW;
-      out[idx] = in[bm * W + (idx % GW) % W];
-    } else {  // kBlockTranspose: in [B, G*R, W] -> out [B, G*W, R]
-      const size_t b = idx / (static_cast<size_t>(M) * W);
-      const int rem = static_cast<int>(idx % (static_cast<size_t>(M) * W));
-      const int g = rem / (W * R);
-      const int w = (rem / R) % W;
-      const int r = rem % R;
-      out[idx] = in[(b * M + g * R + r) * W + w];
+// One thread per output element of case kCase; ``total`` elements.
+template <int kCase>
+__global__ void layout_kernel(const float* __restrict__ in, float* __restrict__ out, int total,
+                              int G, int R, int W) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  if (kCase == kRepeat) {  // in [B, G] -> out [B, G*R], each value R times
+    const int M = G * R, b = idx / M;
+    out[idx] = in[b * G + (idx - b * M) / R];
+  } else if (kCase == kMaskedSum) {  // the same by a G-term masked sum
+    const int M = G * R, b = idx / M, lane = (idx - b * M) / R;
+    const float* src = in + b * G;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int g = 0; g < G; ++g) {
+      const float v = __ldg(src + g);  // every load issued, none behind a branch
+      acc = acc + (lane == g ? v : 0.0f);
     }
+    out[idx] = acc;
+  } else if (kCase == kBroadcast) {  // in [B*R, W] -> out [B*R, G*W]
+    const int GW = G * W, row = idx / GW;
+    out[idx] = in[row * W + (idx - row * GW) % W];
+  } else {  // kBlockTranspose: in [B, G*R, W] -> out [B, G*W, R], block (b, g) by block
+    const int WR = W * R, bg = idx / WR, e = idx - bg * WR, w = e / R, r = e - w * R;
+    out[idx] = in[(bg * R + r) * W + w];
   }
+}
+
+// The broadcast (g2) as 16-byte copies: in [rows, W4] -> out [rows, G*W4]
+// float4s, ``total4`` of them.
+__global__ void broadcast4_kernel(const float4* __restrict__ in, float4* __restrict__ out,
+                                  int total4, int GW4, int W4) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total4) return;
+  const int row = idx / GW4;
+  out[idx] = in[row * W4 + (idx - row * GW4) % W4];
+}
+
+template <int kCase>
+int launch_layout(const void* in, void* out, int total, int G, int R, int W,
+                  cudaStream_t stream) {
+  const int blocks = total / kLayoutThreads + (total % kLayoutThreads != 0);
+  layout_kernel<kCase><<<blocks, kLayoutThreads, 0, stream>>>(
+      static_cast<const float*>(in), static_cast<float*>(out), total, G, R, W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void banded_pair_kernel(const float* __restrict__ frac,
@@ -201,10 +249,10 @@ int blocks_for(size_t total) {
 
 extern "C" int probe_bmm(const void* a, const void* b, void* out, int F, int M,
                          int K, int N, void* stream) {
-  const size_t bytes = static_cast<size_t>(M * K + K * N) * sizeof(float);
-  if (F <= 0 || M <= 0 || K <= 0 || N <= 0 || bytes > kStaticSmem)
+  if (F <= 0 || M <= 0 || K <= 0 || N <= 0 || F > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  bmm_kernel<<<F, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((M + kBmmWarps - 1) / kBmmWarps, F);
+  bmm_kernel<<<grid, kBmmWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<float*>(out), M, K, N);
   return static_cast<int>(cudaGetLastError());
@@ -221,14 +269,31 @@ extern "C" int probe_band_grad(const void* win, const void* xy, void* out, int W
 
 extern "C" int probe_layout(const void* in, void* out, int B, int G, int R, int W,
                             int mode, void* stream) {
-  if (B <= 0 || G <= 0 || R <= 0 || W <= 0 || mode < kRepeat || mode > kBlockTranspose)
+  // every case writes at most B*G*R*W elements, indexed in 32 bits
+  const long long total = static_cast<long long>(B) * G * R * W;
+  if (B <= 0 || G <= 0 || R <= 0 || W <= 0 || total > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t total = (mode == kRepeat || mode == kMaskedSum)
-                           ? static_cast<size_t>(B) * G * R
-                           : static_cast<size_t>(B) * G * R * W;
-  layout_kernel<<<blocks_for(total), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), B, G, R, W, mode);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kRepeat:
+      return launch_layout<kRepeat>(in, out, B * G * R, G, R, W, s);
+    case kMaskedSum:
+      return launch_layout<kMaskedSum>(in, out, B * G * R, G, R, W, s);
+    case kBroadcast:
+      if (W % 4 == 0 && (reinterpret_cast<uintptr_t>(in) & 15) == 0 &&
+          (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+        const int total4 = static_cast<int>(total / 4);
+        broadcast4_kernel<<<(total4 + kCopyThreads - 1) / kCopyThreads, kCopyThreads, 0, s>>>(
+            static_cast<const float4*>(in), static_cast<float4*>(out), total4, G * W / 4,
+            W / 4);
+        return static_cast<int>(cudaGetLastError());
+      }
+      return launch_layout<kBroadcast>(in, out, static_cast<int>(total), G, R, W, s);
+    case kBlockTranspose:
+      return launch_layout<kBlockTranspose>(in, out, static_cast<int>(total), G, R, W, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int probe_banded_pair(const void* frac, const void* start, void* out,

@@ -83,9 +83,12 @@ class Kernel:
         self.name = name
         self.source = source
         self.launches = 0
+        self._fn = None  # the C function, kept from the first launch on
 
     def fn(self):
-        return load_library()[self.name]
+        if self._fn is None:
+            self._fn = load_library()[self.name]
+        return self._fn
 
     def launch(self, *args, kernels: int = 1) -> None:
         """Call the C entry point, raise if the launch failed, and count the
@@ -211,8 +214,14 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(device: torch.device | int) -> int:
+    """The raw handle of the current CUDA stream on ``device`` (a device or
+    its index): ``torch.cuda.current_stream(device).cuda_stream`` without
+    building a ``Stream`` object. Read on every launch, never kept: under
+    CUDA-graph capture the current stream is the capture's."""
+    index = device if isinstance(device, int) else device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def check_cuda(t: torch.Tensor, name: str, shape: tuple | None = None,

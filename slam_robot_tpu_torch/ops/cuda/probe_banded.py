@@ -26,7 +26,8 @@ SAMPLE_GROUPED = build.Kernel("probe_sample_grouped", SOURCE)
 # cases of probe_layout: g1, g2, g4, g5
 REPEAT, BROADCAST, MASKED_SUM, BLOCK_TRANSPOSE = range(4)
 
-_SMEM_BYTES = 48 * 1024
+_MAX_GRID_Y = 65535  # probe_bmm's batch entries: its grid's y extent
+_MAX_ELEMENTS = 2**31 - 1  # probe_layout indexes in 32 bits
 _MAX_WINDOW = 32
 
 
@@ -43,11 +44,11 @@ def bmm(a, b):
         return bmm_plain(a, b)
     f, m, k = a.shape
     n = b.shape[2]
-    if 4 * (m * k + k * n) > _SMEM_BYTES:
-        raise ValueError(f"one batch entry's operands exceed 48 KB: {m}x{k} and {k}x{n}")
+    if f > _MAX_GRID_Y:
+        raise ValueError(f"{f} batch entries: at most {_MAX_GRID_Y}")
     build.check_cuda(a, "a")
     build.check_cuda(b, "b")
-    out = torch.empty((f, m, n), dtype=torch.float32, device=a.device)
+    out = a.new_empty((f, m, n))
     BMM.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), f, m, k, n,
                build.stream_handle(a.device))
     return out
@@ -117,6 +118,10 @@ def layout(t, case: int, groups: int, rows: int):
       (``rows`` is not used);
     - BLOCK_TRANSPOSE (g5): t [B, G*rows, W] -> [B, G*W, rows], each lane's
       [rows, W] block transposed.
+
+    On either device it refuses more than 2^31 - 1 elements of B x G x
+    rows x W (W = 1 for REPEAT and MASKED_SUM): the kernel indexes in 32
+    bits.
     """
     if case not in (REPEAT, BROADCAST, MASKED_SUM, BLOCK_TRANSPOSE):
         raise ValueError(f"unknown case {case}")
@@ -134,10 +139,13 @@ def layout(t, case: int, groups: int, rows: int):
             shape = (b, rows, groups * w)
         else:
             shape = (b, groups * w, rows)
+    if b * groups * rows * w > _MAX_ELEMENTS:
+        raise ValueError(f"{b} x {groups} x {rows} x {w} elements: the kernel indexes in 32 "
+                         f"bits, at most {_MAX_ELEMENTS}")
     if not t.is_cuda:
         return layout_plain(t, case, groups, rows)
     build.check_cuda(t, "t")
-    out = torch.empty(shape, dtype=torch.float32, device=t.device)
+    out = t.new_empty(shape)
     LAYOUT.launch(t.data_ptr(), out.data_ptr(), b, groups, rows, w, case,
                   build.stream_handle(t.device))
     return out

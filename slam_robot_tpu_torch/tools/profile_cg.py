@@ -5,7 +5,8 @@ Port of the JAX package's ``tools/profile_cg.py``. It runs ``ops/ba_cg.solve``
 on ``bench_suite`` config 5's problem (``--small``: the CI shape), times one
 solve after a first one, then profiles one more (``profile_trace.profile``)
 and prints the GN iters/s, the total device self time, the device busy
-share against the unprofiled solve, device ms a GN iteration by category
+share against the unprofiled solves on either side of the profiled one
+(the timed solve and one more), device ms a GN iteration by category
 (``profile_trace.CATEGORIES``) and the top kernels. The line names the
 layout: in the port ``scatter`` adds with atomics, in no fixed order, and
 ``padded`` comes out the same every run.
@@ -63,7 +64,8 @@ def run(args: tuple, cgc: ba_cg.CGConfig, dev: torch.device, top: int = 30,
     emit(f"first solve: {first_s:.0f}s")
     emit(f"solve: {dt:.2f}s = {rate:.2f} GN iters/s (cost {float(res.cost):.1f}, "
          f"layout {cgc.layout})")
-    p = profile_trace.profile(lambda: ba_cg.solve(*args, cgc), dev, cgc.gn_iters, out_dir, top)
+    p = profile_trace.profile(lambda: ba_cg.solve(*args, cgc), dev, cgc.gn_iters, out_dir, top,
+                              wall_before_ms=1e3 * dt)
     profile_trace.report(p, "GN iter", emit)
     return dict(p, gn_iters_per_s=rate, solve_s=dt, first_s=first_s, cost=float(res.cost))
 

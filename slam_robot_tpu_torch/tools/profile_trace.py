@@ -4,9 +4,8 @@ category and by kernel, and host time by the step's spans.
 Port of the JAX package's ``tools/profile_trace.py``. It builds the
 bench's mid-sweep state (``bench.bootstrap``: 96 warm frames, cached with
 ``utils/checkpoint`` in the temporary directory, one file a checkout, so
-that a second run skips the warm),
-times one unprofiled pass of the scan's 64 frames, then traces one more
-pass with ``torch.profiler`` and prints:
+that a second run skips the warm), traces one pass of the scan's 64
+frames with ``torch.profiler``, times one more unprofiled, and prints:
 
 - the total device self time, a frame;
 - the device busy share: that time over the unprofiled pass's wall time
@@ -23,13 +22,20 @@ pass with ``torch.profiler`` and prints:
 On the card the profiled pass traces device activity only (CUPTI): with
 the host's op events a pass of ~1.5M launches takes many minutes to read
 back. The trace that ``trace_detail`` re-reads (Chrome JSON in ``--out``,
-default ``torchtrace_<checkout>/trace.json`` in the temporary directory) is one more pass over the first
-:data:`DETAIL_FRAMES` frames with the host's operators, launches and spans
-as well, so that each kernel can be put in the span that launched it. On
+default ``torchtrace_<checkout>/trace.json`` in the temporary directory)
+is one more pass over the first :data:`DETAIL_FRAMES` frames with the
+host's operators, launches and spans as well, so that each kernel can be
+put in the span that launched it. On
 the CPU (``--device cpu``, for the tests) the "device" rows are the CPU's
 operator events, and the profiled pass is the one exported.
 
+A process that has run for minutes loses kernels from its traces (ROADMAP
+C6), so a long-running caller hands its profiled passes to a fresh process
+as a job: :func:`write_job` writes the state, the frames and what to run
+into a directory, and :func:`run_job` runs ``--job DIR`` and waits for it.
+
     python -m slam_robot_tpu_torch.tools.profile_trace [--refresh-state] [--top 40] [--frames 64]
+    python -m slam_robot_tpu_torch.tools.profile_trace --job DIR [--device cuda]
 
 Without a CUDA device (and without ``--device cpu``) it exits 1 and prints
 no result line.
@@ -39,10 +45,13 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import functools
 import json
 import os
 import re
+import signal
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -202,13 +211,22 @@ def _traced(run, dev: torch.device, activities):
 
 
 def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
-            top: int = 40, detail=None, detail_units: int | None = None) -> dict:
-    """``run()`` once on the host's clock (with :class:`SpanTimer`), then
-    once under ``torch.profiler``. Returns the figures per unit (``n_units``
+            top: int = 40, detail=None, detail_units: int | None = None,
+            wall_before_ms: float | None = None) -> dict:
+    """``run()`` once under ``torch.profiler``, then once on the host's clock
+    (with :class:`SpanTimer`). Returns the figures per unit (``n_units``
     frames or iterations in one ``run``): wall ms, device ms, busy share,
     device ms by category, the ``top`` device rows, host ms by span, the
     launches of B1 and B2 in the trace and by the port's counters, the
     profiled pass's wall ms, and every device row's count (``counts``).
+
+    The traced pass comes first: in a fresh process it pays for the first
+    launches (each kernel loads on its first one), which would slow an
+    unprofiled pass several times and leave the device's time as it is.
+    ``wall_before_ms`` is the wall of an unprofiled ``run()`` the caller
+    made just before (``profile_cg``'s timed solve): the wall is then the
+    mean of the two unprofiled passes on either side of the traced one (a
+    saturated card's wall moves by ~1 % from one pass to the next).
 
     With ``out_dir``, writes the operator table there as
     ``profile_device.txt`` and a Chrome trace as ``trace.json`` for
@@ -217,18 +235,19 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
     with the host's operators, launches and spans beside the device's work,
     and exported without reading it back (``trace_units``, and the port's
     counters over that pass as ``trace_counted_launches``)."""
-    profiling.sync(dev)
-    with SpanTimer() as spans:
-        t0 = time.perf_counter()
-        run()
-        profiling.sync(dev)
-        wall_ms = 1e3 * (time.perf_counter() - t0)
     acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
     before = bench.counts()
     t0 = time.perf_counter()
     prof = _traced(run, dev, acts)
     profiled_ms = 1e3 * (time.perf_counter() - t0 - LEAD_S - TAIL_S)
     counters = {k: v - before[k] for k, v in bench.counts().items()}
+    with SpanTimer() as spans:
+        t0 = time.perf_counter()
+        run()
+        profiling.sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    if wall_before_ms is not None:
+        wall_ms = (wall_ms + wall_before_ms) / 2
     averages = prof.key_averages()
     rows = device_rows(averages, dev)
     total_us, cats = split(rows)
@@ -328,7 +347,8 @@ def trace_scan(ps, imgs: torch.Tensor, cfg: SlamConfig, dev: torch.device,
                out_dir: str | None = TRACE_DIR, top: int = 40, first_pass: bool = True,
                emit=print) -> dict:
     """The scan's first pass over ``imgs`` from ``ps`` (left out without
-    ``first_pass``, when the caller has just run these frames from ``ps``),
+    ``first_pass``: when the caller has just run these frames from ``ps``,
+    or in a fresh process, where :func:`profile`'s traced pass comes first),
     then :func:`profile` of one more; prints and returns its figures."""
     if first_pass:
         t0 = time.perf_counter()
@@ -345,6 +365,139 @@ def trace_scan(ps, imgs: torch.Tensor, cfg: SlamConfig, dev: torch.device,
     return p
 
 
+# ROADMAP C6: in a process that has profiled and launched for a few minutes,
+# CUPTI's kernel time stamps run early against the host's clock (Kineto's
+# warning "GPU op timestamp < runtime timestamp", by up to ~0.24 s), and
+# Kineto drops the kernels that then start before its window (its
+# "Out-of-range" count rises by as many), from a device-only trace as from
+# an exported one; a fresh process lost none. A job holds what a
+# long-running caller profiles, for a fresh process to run: the scan's trace
+# (trace_scan, no first pass), then trace_detail's reading of the export, in
+# a process of its own beside the config-5 tools of ``cg`` (profile_cg in
+# each layout, then profile_cg_sharded)
+JOB_FILE, RESULT_FILE, STATE_FILE, FRAMES_FILE = "job.json", "result.json", "state.pt", "frames.pt"
+DETAIL_FILE = "detail.json"
+# seconds the job waits for trace_detail after its last solve
+DETAIL_TIMEOUT_S = 300
+_ROOT = Path(__file__).resolve().parents[2]
+
+
+def write_job(job_dir: str, ps, imgs: torch.Tensor, cfg: SlamConfig, top: int,
+              cg: dict | None = None) -> None:
+    """The job of :func:`run_job` in ``job_dir``: the state ``ps`` (a
+    ``utils/checkpoint`` file), the frames ``imgs``, the config and the
+    options, ``cg`` those of the config-5 tools ({"layouts", "gn_iters",
+    "cg_iters", "top", "small"} of ``profile_cg``, and "shards" of
+    ``profile_cg_sharded``, none when empty; None: no solve)."""
+    os.makedirs(job_dir, exist_ok=True)
+    checkpoint.save(ps, os.path.join(job_dir, STATE_FILE))
+    torch.save(imgs.cpu(), os.path.join(job_dir, FRAMES_FILE))
+    with open(os.path.join(job_dir, JOB_FILE), "w") as f:
+        json.dump({"cfg": dataclasses.asdict(cfg), "top": top, "cg": cg}, f)
+
+
+def read_job(job_dir: str, dev: torch.device) -> tuple:
+    """(state, frames, config, options) of :func:`write_job`'s job, on ``dev``."""
+    with open(os.path.join(job_dir, JOB_FILE)) as f:
+        job = json.load(f)
+    cfg = SlamConfig(**{k: tuple(v) if isinstance(v, list) else v
+                        for k, v in job.pop("cfg").items()})
+    ps = checkpoint.restore(pipeline.init(cfg, device=dev), os.path.join(job_dir, STATE_FILE),
+                            dev)
+    imgs = torch.load(os.path.join(job_dir, FRAMES_FILE), weights_only=True).to(dev)
+    return ps, imgs, cfg, job
+
+
+def do_job(job_dir: str, dev: torch.device) -> dict:
+    """The job in ``job_dir`` in this process; writes and returns its result:
+    each tool's figures, printed lines and seconds, trace_detail's JSON, and
+    the port's counters over the job (``launches``)."""
+    from slam_robot_tpu_torch.ops import ba_cg
+    from slam_robot_tpu_torch.tools import profile_cg
+
+    ps, imgs, cfg, job = read_job(job_dir, dev)
+    before = bench.counts()
+    tools = {}
+
+    def tool(name, fn):
+        lines, t0 = [], time.perf_counter()
+        figures = fn(lines.append)
+        tools[name] = {"figures": figures, "lines": lines, "s": time.perf_counter() - t0}
+
+    tool("profile_trace", lambda emit: trace_scan(ps, imgs, cfg, dev, job_dir, job["top"],
+                                                  first_pass=False, emit=emit))
+    trace = tools["profile_trace"]["figures"]["trace"]
+    with open(os.path.join(job_dir, DETAIL_FILE), "w") as f:
+        reader = subprocess.Popen([sys.executable, "-m", "slam_robot_tpu_torch.tools.trace_detail",
+                                   "--trace", trace, "--json"], stdout=f, cwd=_ROOT)
+    try:
+        cg = job["cg"]
+        if cg is not None:
+            big = profile_cg.problem(cg["small"], dev)
+            for layout in cg["layouts"]:
+                cgc = ba_cg.CGConfig(max_free_frames=big[0].shape[0], gn_iters=cg["gn_iters"],
+                                     cg_iters=cg["cg_iters"], precond="diag", layout=layout)
+                tool(f"profile_cg {layout}", lambda emit: profile_cg.run(
+                    big, cgc, dev, cg["top"], out_dir=None, emit=emit))
+            if cg["shards"]:
+                tool("profile_cg_sharded", lambda emit: _sharded(
+                    dev, cg, big, tools.get("profile_cg padded"), emit))
+        rc = reader.wait(timeout=DETAIL_TIMEOUT_S)
+    finally:
+        if reader.poll() is None:
+            reader.kill()
+            reader.wait()
+    if rc != 0:
+        raise RuntimeError(f"trace_detail exited {rc} on {trace}")
+    with open(os.path.join(job_dir, DETAIL_FILE)) as f:
+        detail = json.load(f)
+    after = bench.counts()
+    result = {"tools": tools, "detail": detail,
+              "launches": {k: v - before[k] for k, v in after.items()}}
+    with open(os.path.join(job_dir, RESULT_FILE), "w") as f:
+        json.dump(result, f)
+    return result
+
+
+def _sharded(dev: torch.device, cg: dict, big: tuple, padded: dict | None, emit) -> dict:
+    """``profile_cg_sharded.run`` over ``cg["shards"]`` on the job's config
+    5 problem ``big``, its projection from the padded solve's rate where the
+    job measured one; emits each validation row, then the projection."""
+    from slam_robot_tpu_torch.tools import profile_cg_sharded
+
+    measured = padded["figures"]["gn_iters_per_s"] if padded is not None else None
+    out = profile_cg_sharded.run(dev, tuple(cg["shards"]), small=cg["small"], measured=measured,
+                                 big=big, emit=lambda s: None)
+    for r in out["validation"]:
+        emit(json.dumps(r))
+    emit(json.dumps({k: out[k] for k in ("projection_basis", "projection")}))
+    return out
+
+
+def run_job(job_dir: str, dev: torch.device, timeout: float) -> dict:
+    """Run :func:`write_job`'s job in a fresh process (``python -m
+    slam_robot_tpu_torch.tools.profile_trace --job DIR``) and wait for it at
+    most ``timeout`` s; returns :func:`do_job`'s result. Raises when the
+    process exits other than 0 or runs out of time (it and what it started
+    are then killed)."""
+    result = os.path.join(job_dir, RESULT_FILE)
+    if os.path.exists(result):
+        os.remove(result)
+    cmd = [sys.executable, "-m", "slam_robot_tpu_torch.tools.profile_trace",
+           "--job", os.path.abspath(job_dir), "--device", dev.type]
+    proc = subprocess.Popen(cmd, cwd=_ROOT, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise RuntimeError(f"the profiling job in {job_dir} ran past {timeout} s") from None
+    if rc != 0:
+        raise RuntimeError(f"the profiling job in {job_dir} exited {rc}")
+    with open(result) as f:
+        return json.load(f)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--refresh-state", action="store_true")
@@ -355,10 +508,14 @@ def main(argv=None) -> int:
                     help="torch device to run on (default: cuda; cpu for a CPU run)")
     ap.add_argument("--small", action="store_true",
                     help="160x120, depth 4, 96 features, 24 warm frames")
+    ap.add_argument("--job", metavar="DIR", help="run the job that write_job left in DIR")
     args = ap.parse_args(argv)
     dev = profiling.open_device(args.device, "profile_trace")
     if dev is None:
         return 1
+    if args.job:
+        do_job(args.job, dev)
+        return 0
     cfg = profiling.SMALL if args.small else SlamConfig()
     n_warm = 24 if args.small else N_WARM
     frames = benchscene.make_frames(cfg, n_warm + args.frames, device=dev)

@@ -38,9 +38,10 @@ def make_world(seed: int = 0, n_world: int = 14000):
     return world, bright
 
 
-def make_frames(cfg, n_frames: int, seed: int = 0, device=None) -> list[torch.Tensor]:
-    """Render the sweep's frames on ``device`` (default: the CUDA card).
-    Returns a list of [H,W] f32."""
+def make_frames(cfg, n_frames: int, seed: int = 0, device=None,
+                start: int = 0) -> list[torch.Tensor]:
+    """Render the sweep's frames ``start`` to ``start + n_frames - 1`` on
+    ``device`` (default: the CUDA card). Returns a list of [H,W] f32."""
     device = default_device(device)
     k = torch.as_tensor(synthetic.reference_intrinsics(cfg), device=device)
     world_np, bright_np = make_world(seed)
@@ -48,7 +49,7 @@ def make_frames(cfg, n_frames: int, seed: int = 0, device=None) -> list[torch.Te
     bright = torch.as_tensor(bright_np, device=device)
     axis = torch.tensor([0.0, 1.0, 0.0], device=device)
     frames = []
-    for i in range(n_frames):
+    for i in range(start, start + n_frames):
         yaw, tnp = sweep_pose(i)
         q = quat.from_axis_angle(axis, torch.tensor(yaw, dtype=torch.float32, device=device))
         frames.append(renderer.render(q, torch.as_tensor(tnp, device=device), k, world,

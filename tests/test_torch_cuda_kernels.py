@@ -28,6 +28,7 @@ and loops exact; the batched product rtol 1e-5; the grouped sampling exact
 """
 
 import importlib
+import math
 
 
 import numpy as np
@@ -434,6 +435,56 @@ def test_probe_banded_kernels_on_random_inputs(cuda_device):
     xy = torch.tensor([7.6, -0.4], device=cuda_device)
     torch.testing.assert_close(pb.band_grad(win[0, :30, :30].contiguous(), xy, 13),
                                pb.band_grad_plain(win[0, :30, :30], xy, 13), rtol=1e-5, atol=0)
+
+
+def _eager_and_replayed(fn):
+    """``fn()`` once eagerly and once captured in a CUDA graph and replayed."""
+    eager = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, captured
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(13, 32, 32), (7, 20, 5), (13, 20, 32), (7, 32, 5),
+                                   (13, 40, 37)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_probe_bmm_at_tail_shapes_eager_and_replayed_on_card(cuda_device, m, n, k, aligned):
+    """T3's kernel at shapes that are not multiples of 4 or 32 (a column
+    tail, a K tail) and on operands off 16-byte alignment, against its plain
+    version, and a replayed CUDA graph equal to the eager call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(100 * m + n + k)
+    f = 6
+    a = torch.rand((f, m, k), generator=gen, device=cuda_device)
+    buf = torch.rand((f * k * n + 1,), generator=gen, device=cuda_device)
+    b = (buf[:-1] if aligned else buf[1:]).view(f, k, n)
+    eager, replayed = _eager_and_replayed(lambda: pb.bmm(a, b))
+    torch.testing.assert_close(eager, pb.bmm_plain(a, b), rtol=1e-5, atol=0)
+    assert torch.equal(eager, replayed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [pb.REPEAT, pb.BROADCAST, pb.MASKED_SUM, pb.BLOCK_TRANSPOSE])
+@pytest.mark.parametrize("groups,rows,w", [(4, 26, 30), (3, 26, 32), (4, 27, 5), (2, 40, 70)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_probe_layout_at_other_shapes_eager_and_replayed_on_card(cuda_device, case, groups,
+                                                                 rows, w, aligned):
+    """T13's four layouts at W not a multiple of 4 (the broadcast's
+    one-element body), W = 32 off 16-byte alignment (the same) and on it
+    (its 16-byte copies), and R other than 26, exact against the plain
+    version, and a replayed CUDA graph equal to the eager call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(groups * rows + w)
+    shape = (16, groups) if case in (pb.REPEAT, pb.MASKED_SUM) else (16, groups * rows, w)
+    n = math.prod(shape)
+    buf = torch.randn((n + 1,), generator=gen, device=cuda_device)
+    t = (buf[:-1] if aligned else buf[1:]).view(shape)
+    eager, replayed = _eager_and_replayed(lambda: pb.layout(t, case, groups, rows))
+    assert torch.equal(eager, pb.layout_plain(t, case, groups, rows))
+    assert torch.equal(eager, replayed)
 
 
 @pytest.mark.cuda
