@@ -13,14 +13,16 @@ Phases, one line each (phases 2 and 3 several):
   1. build the hand-written kernels from slam_robot_tpu_torch/csrc with nvcc
   2. B2: sep5 (the blur kernel behind pyramid.blur/pyr_down) against its
      plain PyTorch version on every level shape of a 480x640 pyramid plus
-     an odd shape, atol 1e-5, with times, the one-call PyTorch equivalent
-     (reflect pad + conv2d) and the bound; then pyramid_flat (the whole
+     an odd shape, atol 1e-5, with times (the 11 calls and the 480x640 blur
+     alone, by events and by CUDA-graph replay), the one-call PyTorch
+     equivalent (reflect pad + conv2d) and the bound; then pyramid_flat (the whole
      flat pyramid in two launches) against the plain pyramid at 480x640,
      47x63 and 120x158 (a padded row of 696 B), atol 1e-5 on every element,
      the padding and the zero region included, its largest difference from
      the 11-launch route it replaced, and both timed in turns (route, new,
      new, route) by CUDA events and by CUDA-graph replay, with each launch's
-     device time and the bound
+     device time (torch.profiler, its capture audited: a launch whose kernel
+     the capture lost fails the phase) and the bound
   3. B1: newton_level (one level of the track kernel) against its plain
      version for F=32 and F=256 lanes, windows cut from a rendered bench
      frame's pyramid with perturbed starts, every level (the coarsest window
@@ -40,7 +42,8 @@ Phases, one line each (phases 2 and 3 several):
      and the Sim(3)-aligned trajectory error against the sweep's ground truth
   5. with --profile K: tools/profile_trace.profile over frames 64..63+K
      (device busy time against the same frames' unprofiled wall time,
-     launches, host time by span); the trace and table written to --out
+     launches, host time by span; fails on a launch whose kernel the
+     capture lost); the trace and table written to --out
   6. the replay driver (run_replay.main, in-process) at 640x480 with the
      default SlamConfig: 16 SyntheticSource frames recorded as .npy, replayed
      with --final-ba --dump, replayed again with --live (same summary),
@@ -54,9 +57,11 @@ Phases, one line each (phases 2 and 3 several):
      masked copy, every loop and branch) pass again on seeded non-uniform
      inputs (the modules' SEEDED cases); then every case is timed beside
      its bound: the kernel and the plain version by CUDA events (200
-     back-to-back calls: the host's call and the device), and where there
-     is a one-call PyTorch equivalent, it too by events, then it and the
-     kernel by CUDA-graph replay (the device alone), in turns; the fused
+     back-to-back calls: the host's call and the device), the kernel by
+     CUDA-graph replay (the device alone), and where there is a one-call
+     PyTorch equivalent, it too by events and by graph replay, in turns;
+     the async window copies (T8-T10) print the path they took, which must
+     be the copy engine's bulk copies at the probes' shape; the fused
      two-level pyramid against B2's three calls for the same two levels, and the
      Newton skeleton against B1 on the skeleton's inputs, each also by
      device time (CUDA-graph replay, no host launch path), and the two
@@ -69,23 +74,27 @@ Phases, one line each (phases 2 and 3 several):
      near-equal Dubins types or pursuit samples that steer apart, or the
      stop radius; the card also steps from each of the CPU's states and
      may land more than 1e-4 apart only at a tie, with the shares of such
-     states, of ties and of goals apart capped), with wall time, rollout
-     steps/s and a profile of 30 steps (launches per step, device busy
-     share); --mesh on the one card
+     states, of ties and of goals apart capped), with wall time and rollout
+     steps/s (its profile of 30 steps, launches per step and device busy
+     share, is taken in phase 14's fresh process); --mesh on the one card
      (the same summary); --slam (30 steps at 160x120, depth 4, 96
      features: finite states and estimates, phase 4's launch gates);
      pyramid_flat and newton_track at those shapes against their plain
      versions with phases 2 and 3's tolerances, timed beside their bounds;
      and stop's line
-  9. parity: the port's tools.parity.evaluate on the card for the four
-     sequences of the JAX package's tools/parity.py (six draws, 284
-     frames): per draw its drift against the JAX package's golden and the
+  9. parity: the port's tools.parity on the card for the four sequences
+     of the JAX package's tools/parity.py (six draws, 284 frames), each
+     sequence in a process of its own (python -m
+     slam_robot_tpu_torch.tools.parity --seq NAME --out F), the four at
+     once (a step is the host's work, and the card idles most of it; the
+     steps' ms are therefore not one process's alone): per draw its drift against the JAX package's golden and the
      gate (printed with its verdict and counted in one "parity drift: k of
      6" line, a reading, not a gate of this script: the goldens are XLA:CPU's
      float order), truth ATE and cap, median px and golden + 0.1, n_obs,
      n_points, wall s, median step ms and launches a frame; fails on a
-     NaN/Inf, a truth cap or median-px gate missed, the production 3-seed
-     median over its bar, or phase 4's launch gates; then pyramid_flat and
+     process that leaves no report or runs past its time, a NaN/Inf, a
+     truth cap or median-px gate missed, the production 3-seed median over
+     its bar, or phase 4's launch gates; then pyramid_flat and
      newton_track at the sequences' shapes (240x320, depth 5, F=192) in
      their reference-exact mode against their plain versions with phases 2
      and 3's tolerances: the forward pass with no backward stack, the
@@ -103,9 +112,9 @@ Phases, one line each (phases 2 and 3 several):
      CPU's) and one matcher.track with a lane copied onto another (exactly
      the higher slot is cleaned)
  11. the port's tools/bench_suite at full size, each config's JSON lines
-     with its call time, peak device memory and, per line, the device busy
-     share of its timed work (torch.profiler over one more run against the
-     unprofiled wall time): config 1 (the step at 640x480 without BA;
+     with its call time and peak device memory (per line, the device busy
+     share of its timed work is taken in phase 14's fresh process and
+     printed there as a phase 11 line): config 1 (the step at 640x480 without BA;
      phase 4's launch gates, and pyramid_flat and newton_track at its
      shapes on its own frames against their plain versions with phases 2
      and 3's tolerances), config 2 (window BA 10x500: finite cost, LM
@@ -139,7 +148,8 @@ Phases, one line each (phases 2 and 3 several):
      summaries as phase 6's synthetic run's, and the JPEG encoder's time a
      640x480 overlay
  13. the headline benchmark: the port's bench.run at SlamConfig() for seed
-     0, bench.py's 96 warm and 64 timed frames, its warm going on from phase
+     0, bench.py's 96 warm frames and 16 timed ones (the standalone
+     bench's 64 cut to the script's time limit), its warm going on from phase
      4's state after frame 63 (phase 4 steps frames 0-63 as the warm does);
      the scan's first pass and two timed passes, the eager steps and the
      live ring; fps, each pass's ms a frame, syncs and launches a frame in
@@ -161,15 +171,22 @@ Phases, one line each (phases 2 and 3 several):
      kernels, host ms by span) and trace_detail on its export (2 frames
      with the host's spans; python -m, beside the next two: B1's and B2's
      rows against the port's counters, and the launches that lost their
-     kernel), profile_cg at config 5 in both layouts, and
-     profile_cg_sharded (1, 2, 4 and 8 shards against one, phase 11's
-     tolerances, and the projection from the padded solve's rate); fails
-     on a non-finite number, a busy share over 100 % (by more than the
-     profiler's time stamps, 200 ns a device operation), B1's or B2's
-     launches in the profile, or their rows in the export, other than the
-     port's counters over the same pass, B1 or B2 rows outside the span
-     that launches them (track_sweep, pyramid), a failed or timed-out
-     fresh process, or a variant's state apart
+     kernel), the busy shares of phase 8's fleet (30 steps) and of phase
+     11's suite lines (config 1's steps, a config-2 solve, 30 steps of
+     config 4's fleet, config 5's solve from profile_cg's padded one, the
+     four-shard solve, a sweep of the multi-robot map), profile_cg at
+     config 5 in both layouts, and profile_cg_sharded (1, 2, 4 and 8 shards
+     against one, phase 11's tolerances, and the projection from the padded
+     solve's rate); fails on a non-finite number, a busy share over 100 %
+     (by more than the profiler's time stamps, 200 ns a device operation),
+     any capture with a kernel launch whose kernel it lost (ROADMAP C6;
+     the export's by trace_detail's audit, every other capture's by
+     profile_trace.audit), B1's or B2's launches in the profile, or their
+     rows in the export, other than the port's counters over the same
+     pass, B1 or B2 rows outside the span that launches them (track_sweep,
+     pyramid), a failed or timed-out fresh process, or a variant's state
+     apart. No profile runs in this script's own process after phase 2
+     but phase 5's (off by default), and each audits its capture
 
 The JSON line before the card's line holds the main path's, the replay
 runs', every probe case's, the closed loop's, the parity replays', the
@@ -196,6 +213,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # the main path's length: keyframes, slow windows, polish at 20, xslow at 48
 MAIN_FRAMES = 64
@@ -203,8 +221,11 @@ MAIN_FRAMES = 64
 REPLAY_FRAMES = 16
 # phase 10's sweep frames, before its stationary stretch
 KNOB_FRAMES = 32
-# phase 8's fleet: BASELINE config 4, 64 parallel rollouts of 300 steps
+# phase 8's fleet: BASELINE config 4, 64 parallel rollouts of 300 steps; its
+# profile (and config 4's busy share) over 30 steps, in phase 14's fresh
+# process
 FLEET_GOALS, FLEET_STEPS = 64, 300
+FLEET_PROFILE_STEPS = 30
 # choices this close (Dubins lengths in m, pursuit scores, turn commands, the
 # distance to the stop radius) are near-ties that float32 order decides
 # (tests/test_torch_sim.py)
@@ -237,9 +258,13 @@ ALT_PX, ALT_PX_SHARE = 2e-3, 0.95
 BRUTE_PX, BRUTE_PX_SHARE = 1e-4, 0.99
 BRUTE_SAD = 2.0
 
-# phase 13: bench.py's warm and timed frames, seed 0 (seeds 1 and 2 run in
-# the standalone bench, python -m slam_robot_tpu_torch.bench)
-BENCH_WARM, BENCH_TIMED = 96, 64
+# phase 9: seconds the parity processes may take together
+PARITY_TIMEOUT_S = 480
+
+# phase 13: bench.py's warm frames and timed ones, seed 0 (seeds 1 and 2,
+# and the 64 timed frames, run in the standalone bench, python -m
+# slam_robot_tpu_torch.bench; 16 timed frames fit the script's time limit)
+BENCH_WARM, BENCH_TIMED = 96, 16
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores (every kernel is float32 CUDA-core
@@ -313,25 +338,49 @@ def _graph_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / (5 * reps)
 
 
-def _kernel_us(fn, names, reps: int = 20) -> dict:
-    """Mean device us per call of each kernel whose name holds one of
-    ``names``, from torch.profiler over ``reps`` calls of ``fn``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _gate_capture(name: str, audit: dict) -> None:
+    """A profile's capture by its audit (``profile_trace.audit``): fails on a
+    kernel launch whose kernel the capture lost (ROADMAP C6), or on kernels
+    with no launch to hold them against."""
+    from slam_robot_tpu_torch.tools import profile_trace
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fault = profile_trace.audit_fault(audit)
+    if fault is not None:
+        raise AssertionError(f"{name}: the profile's capture is incomplete: {fault} "
+                             f"({json.dumps(audit)})")
+
+
+def _kernel_us(fn, names, reps: int = 20) -> tuple:
+    """Mean device us per call of each kernel whose name holds one of
+    ``names``, from torch.profiler over ``reps`` calls of ``fn``
+    (``profile_trace.traced``: the calls inside the capture's window), the
+    capture audited and taken again if it lost a kernel; and the retakes."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from slam_robot_tpu_torch.tools import profile_trace
+
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+
+    def take():
+        prof = profile_trace.traced(calls, dev, [ProfilerActivity.CUDA])
+        return prof, profile_trace.run_audit(prof, dev)
+
+    dev = torch.device("cuda")
+    fn()
+    torch.cuda.synchronize()
+    (prof, audit), retakes = profile_trace.retaken(
+        take, lambda got: profile_trace.audit_fault(got[1]))
+    _gate_capture("phase 2's per-launch profile", audit)
     out = {}
     for e in prof.key_averages():
         for name in names:
             if name in e.key:
                 t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
                 out[name] = t / reps
-    return out
+    return out, retakes
 
 
 def phase_blur(frame):
@@ -403,6 +452,9 @@ def phase_blur(frame):
     ms2 = _time_ms(run_kernel, 50)
     plain_ms2 = _time_ms(run_plain, 50)
     lvl0_ms = _time_ms(lambda: bk.sep5(inputs[0], g11, 1), 200)
+    # the device alone (a CUDA graph replayed), in turns
+    gr = [_graph_ms(run_kernel), _graph_ms(run_kernel)]
+    lvl0_gr = [_graph_ms(lambda: bk.sep5(inputs[0], g11, 1)) for _ in range(2)]
     # each input read once, each output written once; the two 5-tap passes
     # over the rows that the output keeps
     n_bytes = n_flops = 0
@@ -416,12 +468,15 @@ def phase_blur(frame):
           f"+ 47x63; 11 calls kernel {ms:.4f}/{ms2:.4f} ms, plain {plain_ms:.4f}/"
           f"{plain_ms2:.4f} ms, pad+conv2d {lib_ms:.4f}/{lib_ms2:.4f} ms (its max_abs_err "
           f"{lib_err:.3e}); bound {bound_ms:.5f} ms by {bound_by} ({n_bytes} B, "
-          f"{n_flops} flop); 480x640 blur alone {lvl0_ms:.4f} ms", flush=True)
+          f"{n_flops} flop); 480x640 blur alone {lvl0_ms:.4f} ms; by graph replay (the "
+          f"device) the 11 calls {gr[0]:.5f} / {gr[1]:.5f} ms, the 480x640 blur "
+          f"{lvl0_gr[0]:.5f} / {lvl0_gr[1]:.5f} ms", flush=True)
     return {"name": "sep5_reflect101", "route": "cuda",
             "source": "slam_robot_tpu_torch/csrc/blur.cu",
             "replaces": "slam_robot_tpu/ops/pallas/blur.py:35",
             "max_abs_err": max_err, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": min(lib_ms, lib_ms2),
+            "graph_ms": min(gr), "level0_ms": lvl0_ms, "level0_graph_ms": min(lvl0_gr),
             "timed": "the 11 build_pyramid calls at 480x640, per frame"}
 
 
@@ -486,7 +541,7 @@ def phase_pyramid(frame):
     gr_route, gr_new = _in_turns(route, new, _graph_ms)
     plain_ms = _time_ms(lambda: bk.pyramid_flat_plain(grey, 6), 20)
     # each launch's device time (the profiler's kernel rows)
-    launch_us = _kernel_us(new, ("pyramid_tiles", "pyramid_walk"))
+    launch_us, retakes = _kernel_us(new, ("pyramid_tiles", "pyramid_walk"))
     n_bytes, n_flops = _pyramid_work(h0, w0, 6)
     bound_ms, bound_by = _bound(n_bytes, n_flops)
     print(f"phase 2 pyramid_flat: max_abs_err {max_err:.3e} (atol 1e-5, padding and zero "
@@ -494,7 +549,8 @@ def phase_pyramid(frame):
           f"{json.dumps(route_err)}; 480x640 depth 6 in turns (route, new, new, route) by "
           f"events {ev_route[0]:.4f} / {ev_new[0]:.4f} / {ev_new[1]:.4f} / {ev_route[1]:.4f} "
           f"ms, by graph replay {gr_route[0]:.5f} / {gr_new[0]:.5f} / {gr_new[1]:.5f} / "
-          f"{gr_route[1]:.5f} ms; per launch (profiler) {json.dumps(launch_us)} us; plain "
+          f"{gr_route[1]:.5f} ms; per launch (profiler) {json.dumps(launch_us)} us (capture "
+          f"retakes {retakes}); plain "
           f"{plain_ms:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} ({n_bytes} B, {n_flops} "
           f"flop); {bk.pyramid_plan(h0, w0, 6)['launches']} launches", flush=True)
     # no single PyTorch call builds a pyramid: library_ms is null
@@ -978,6 +1034,7 @@ def phase_profile(ps, frames, start: int, out_dir: str):
 
     n = len(frames) - start
     p = profile_trace.profile(run, ps.map.device, n, out_dir)
+    _gate_capture("phase 5", p["audit"])
     summary = {"frames": n, "profiled_wall_ms_per_frame": p["profiled_wall_ms"],
                "device_busy_ms_per_frame": p["device_ms"],
                "device_idle_share": 1.0 - p["busy_share"],
@@ -1123,6 +1180,7 @@ def phase_probes():
 
     from slam_robot_tpu_torch import tools
     from slam_robot_tpu_torch.ops.cuda import blur as bk
+    from slam_robot_tpu_torch.ops.cuda import probe_windows as pw
 
     t0 = time.time()
     modules = [importlib.import_module(f"slam_robot_tpu_torch.tools.{name}")
@@ -1173,32 +1231,40 @@ def phase_probes():
         def run():
             return c.run(*args)
 
-        # a case with a library call: both by events (the host's call and the
-        # device) and by graph replay (the device alone), in turns
+        # every case by events (the host's call and the device) and by graph
+        # replay (the device alone); a case with a library call, it too, in
+        # turns
         ms = _time_ms(run, 200)
-        graph_ms = lib_ms = lib_graph_ms = None
+        lib_ms = lib_graph_ms = None
         if c.library is not None:
             lib_call = c.library(*args)
             lib_ms = _time_ms(lib_call, 200)
             lib_graph_ms = _graph_ms(lib_call)
-            graph_ms = _graph_ms(run)
+        graph_ms = _graph_ms(run)
         plain_ms = _time_ms(lambda: c.plain(*args), 20)
         n_bytes = _case_bytes(c, args, got)
         n_flops = int(c.flops(*args)) if c.flops is not None else 0
         bound_ms, bound_by = _bound(n_bytes, n_flops)
         rows[c.name] = {"kernel": c.kernel.name, "replaces": c.replaces, "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
-                        "flops": n_flops}
+                        "ms": ms, "graph_ms": graph_ms, "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": n_bytes, "flops": n_flops}
         lib = ""
         if c.library is not None:
-            rows[c.name].update(graph_ms=graph_ms, library_graph_ms=lib_graph_ms)
-            lib = (f" ({graph_ms:.5f} by graph replay), library {lib_ms:.4f} ms "
-                   f"({lib_graph_ms:.5f}); kernel/library {ms / lib_ms:.3f}x by events (the "
-                   f"host's call), {graph_ms / lib_graph_ms:.3f}x by graph replay (the device)")
-        print(f"phase 7 {c.name}: kernel {ms:.4f} ms{lib}, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.6f} ms by {bound_by} ({n_bytes} B, {n_flops} flop), "
-              f"max_abs_err {err:.3g}", flush=True)
+            rows[c.name].update(library_graph_ms=lib_graph_ms)
+            lib = (f", library {lib_ms:.4f} ms ({lib_graph_ms:.5f}); kernel/library "
+                   f"{ms / lib_ms:.3f}x by events (the host's call), "
+                   f"{graph_ms / lib_graph_ms:.3f}x by graph replay (the device)")
+        if c.kernel is pw.WINDOWS_ASYNC:
+            # the probes' image is one the copy engine's bulk copies take
+            rows[c.name]["path"] = pw.ROUTE_NAMES[pw.async_route(args[0])]
+            lib += f"; path {rows[c.name]['path']}"
+            if rows[c.name]["path"] != pw.ROUTE_NAMES[pw.BULK]:
+                raise AssertionError(f"{c.name}: the async copy took {rows[c.name]['path']}, "
+                                     f"not the copy engine, at the probes' shape")
+        print(f"phase 7 {c.name}: kernel {ms:.4f} ms ({graph_ms:.5f} by graph replay){lib}, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} ({n_bytes} B, "
+              f"{n_flops} flop), max_abs_err {err:.3g}", flush=True)
 
     # the fused two-level pyramid against B2's three calls for the same two
     # levels (the probe's own comparison), in turns
@@ -1275,11 +1341,6 @@ def phase_probes():
           f"{len(seeded)} seeded cases passed, launches {launches}, sep5_reflect101 "
           f"{sep5_launches} (probe2's reference); phase {time.time() - t0:.2f} s", flush=True)
     return entries, rows, sep5_launches
-
-
-def _self_device_us(e) -> float:
-    """A profiler row's own device time (us), under either attribute name."""
-    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
 
 
 def _run_sim(argv):
@@ -1377,33 +1438,6 @@ def _fleet_lockstep(goals, n_steps: int) -> dict:
     return {"first": first, "tied": tied, "dist": {d: v.cpu() for d, v in dist.items()},
             "gaps": gaps, "differ_tied": differ_tied,
             "tie_share": n_ties / (n_steps * goals.shape[0])}
-
-
-def _fleet_profile(goals, n_steps: int) -> dict:
-    """torch.profiler over ``n_steps`` of the card's fleet: kernel launches
-    and device busy ms per step, against the same run's unprofiled wall
-    time (the profiler slows the host)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from slam_robot_tpu_torch.models import sim
-
-    sim.rollout(goals, n_steps=2)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sim.rollout(goals, n_steps=n_steps)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sim.rollout(goals, n_steps=n_steps)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    busy_ms = sum(_self_device_us(e) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    return {"steps": n_steps, "launches_per_step": launches / n_steps,
-            "device_busy_ms_per_step": busy_ms / n_steps,
-            "wall_ms_per_step": wall_ms / n_steps, "device_busy_share": busy_ms / wall_ms}
 
 
 def _finite(name: str, tensors) -> None:
@@ -1567,7 +1601,6 @@ def phase_loop(card: str):
     if apart.sum() > EXEMPT_GOALS_MAX * FLEET_GOALS:
         raise AssertionError(f"{int(apart.sum())} of {FLEET_GOALS} goals end more than 1e-3 m "
                              f"apart, more than {EXEMPT_GOALS_MAX:.0%}")
-    prof = _fleet_profile(on_card["goals"], 30)
     fleet = {"card": card_sum, "cpu": cpu_sum, "card_call_s": card_s, "cpu_call_s": cpu_s,
              "fleet_steps_per_s": FLEET_STEPS / card_s,
              "rollout_steps_per_s": FLEET_GOALS * FLEET_STEPS / card_s,
@@ -1577,7 +1610,7 @@ def phase_loop(card: str):
              "smallest_gap_apart": float(gaps[differ].min()) if differ.any() else None,
              "tie_share": lock["tie_share"],
              "first_split_steps": sorted(int(x) for x in first[first >= 0]),
-             "max_final_dist_diff_m": float(np.abs(d_card - d_cpu).max()), "profile": prof}
+             "max_final_dist_diff_m": float(np.abs(d_card - d_cpu).max())}
     print(f"phase 8 fleet on {card}: {FLEET_GOALS} rollouts x {FLEET_STEPS} steps in "
           f"{card_s:.3f} s ({fleet['rollout_steps_per_s']:.1f} rollout steps/s), CPU "
           f"{cpu_s:.3f} s; card {json.dumps(card_sum)}; CPU {json.dumps(cpu_sum)}; reached "
@@ -1587,8 +1620,8 @@ def phase_loop(card: str):
           f"{differ.size} step > {LOOP_TIE} apart, each at a tie (the others within "
           f"{fleet['largest_gap_within_1e-4']:.3g}, those apart by >= "
           f"{fleet['smallest_gap_apart']}); {lock['tie_share']:.4%} of the states are ties; "
-          f"profile of {prof['steps']} steps: "
-          f"{json.dumps(prof)}", flush=True)
+          f"its profile of {FLEET_PROFILE_STEPS} steps runs in phase 14's fresh process",
+          flush=True)
 
     # 2. the same on a mesh of the one card
     mesh_sum, mesh, mesh_s = _run_sim(argv + ["--mesh"])
@@ -1740,17 +1773,62 @@ def phase_parity_kernels() -> dict:
     return {"pyramid_flat": pyr, "newton_track": track}
 
 
+def _parity_reports(names, out_dir: Path, timeout: float) -> dict:
+    """Each sequence of ``names`` replayed by the port's parity tool in a
+    process of its own (``python -m slam_robot_tpu_torch.tools.parity --seq
+    NAME --out F``), all at once; their reports by name. Fails on a process
+    that leaves no report (its log's end in the message) or that runs past
+    ``timeout`` s; every process is ended before it returns."""
+    import os
+    import signal
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name in names:
+            out, log = out_dir / f"{name}.json", out_dir / f"{name}.log"
+            out.unlink(missing_ok=True)
+            with open(log, "w") as f:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "slam_robot_tpu_torch.tools.parity", "--seq", name,
+                     "--out", str(out), "--device", "cuda"],
+                    stdout=f, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent,
+                    start_new_session=True)
+        deadline = time.time() + timeout
+        reports = {}
+        for name, proc in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 9 {name}: the replay ran past {timeout} s") from None
+            out = out_dir / f"{name}.json"
+            if not out.exists():  # the tool writes its report after every draw
+                tail = (out_dir / f"{name}.log").read_text()[-2000:]
+                raise AssertionError(f"phase 9 {name}: the replay exited {proc.returncode} "
+                                     f"with no report:\n{tail}")
+            reports[name] = json.loads(out.read_text())["sequences"][0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    return reports
+
+
 def phase_parity(card: str):
     """Phase 9: the port's parity replay of the four sequences on the card
-    (six draws). Returns (kernel counts, the phase's summary)."""
+    (six draws), a process a sequence, all at once (:func:`_parity_reports`).
+    Returns (kernel counts, the phase's summary, the kernels at the
+    sequences' shapes)."""
     from slam_robot_tpu_torch.tools import parity
 
     t0 = time.time()
-    _reset_counts()
-    reports = {}
+    reports = _parity_reports(list(parity.SEQUENCES),
+                              Path(__file__).resolve().parent / "build" / "parity9",
+                              PARITY_TIMEOUT_S)
+    counts = {"pyramid_flat": 0, "newton_track": 0, "sep5_reflect101": 0, "sweeps": 0}
     for name, spec in parity.SEQUENCES.items():
-        rep = parity.evaluate(name, device="cuda")
-        reports[name] = rep
+        rep = reports[name]
         n = spec["seq"]["n_frames"]
         for r in rep.get("per_seed", [rep]):
             label = f"{name} seed {r['seed']}" if "seed" in r else name
@@ -1772,13 +1850,14 @@ def phase_parity(card: str):
                 raise AssertionError(f"phase 9 {label}: median {r['median_enabled_err_px']} px "
                                      f"over the golden's {r['golden_median_px']} + 0.1")
             _check_counts(f"phase 9 {label}", r["launches"], n)
+            for k in counts:  # counted in the draw's own process
+                counts[k] += r["launches"][k]
         if "median_truth_pct" in rep:
             print(f"phase 9 {name}: median truth ATE {rep['median_truth_pct']} % of path, bar "
                   f"{rep['median_gate_pct']} %", flush=True)
             if not rep["median_truth_pct"] <= rep["median_gate_pct"]:
                 raise AssertionError(f"phase 9 {name}: the {len(rep['seeds'])}-seed median "
                                      f"{rep['median_truth_pct']} % is over its bar")
-    counts = _read_counts()
     per_draw = [r for rep in reports.values() for r in rep.get("per_seed", [rep])]
     inside = sum(r["drift_ok"] for r in per_draw)
     # the north star's reading, not a gate of this script: the goldens are
@@ -2087,34 +2166,6 @@ def phase_cross_camera(cfg, frames) -> dict:
     return out
 
 
-def _busy_share(run) -> dict:
-    """One more ``run()`` timed on the host clock, then one under
-    torch.profiler (device activity only: the host's op events of a 100k-
-    launch run take minutes to process): device busy ms, device operations
-    (kernels and copies) and the busy share of the unprofiled wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    # device rows, without the device-side spans of record_function ranges
-    # (which cover the same kernels)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-    busy = sum(_self_device_us(e) for e in rows) / 1e3
-    ops = sum(e.count for e in rows)
-    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy, "device_ops": ops,
-            "busy_share": busy / (1e3 * wall), "profile_s": time.perf_counter() - t0}
-
-
 def _suite(config: str, argv=()) -> tuple[list, dict, float, float]:
     """bench_suite.main for one config in-process: (its JSON lines, its
     results, wall s of the call, peak device GiB)."""
@@ -2151,24 +2202,20 @@ def phase_suite(card: str):
     import torch
 
     from slam_robot_tpu_torch.device import SYNCS
-    from slam_robot_tpu_torch.models import sim
     from slam_robot_tpu_torch.ops import ba_cg
-    from slam_robot_tpu_torch.parallel import multi_robot
     from slam_robot_tpu_torch.tools import bench_suite, calibrate
 
     t0 = time.time()
     summary = {}
 
-    def report(key, lines, res, wall, peak, runs=None):
-        """Print a config's lines and its figures; ``runs`` maps a line to
-        the work whose busy share is measured (default: its timed work)."""
+    def report(key, lines, wall, peak):
+        """Print a config's lines and its figures (the busy share of each
+        line's timed work comes from phase 14's fresh process)."""
         for line in lines:
             print(json.dumps(line), flush=True)
-        runs = {name: _busy_share(run) for name, run in
-                (runs or {name: res[name]["run"] for name in res}).items()}
-        summary[key] = {"lines": lines, "call_s": wall, "peak_gib": peak, "profile": runs}
-        print(f"phase 11 config {key} on {card}: call {wall:.2f} s, peak "
-              f"{peak:.3f} GiB; per line's timed work: {json.dumps(runs)}", flush=True)
+        summary[key] = {"lines": lines, "call_s": wall, "peak_gib": peak}
+        print(f"phase 11 config {key} on {card}: call {wall:.2f} s, peak {peak:.3f} GiB",
+              flush=True)
         return {line["config"]: line for line in lines}
 
     # config 1: the step at 640x480 without BA, with phase 4's launch gates,
@@ -2177,7 +2224,7 @@ def phase_suite(card: str):
     lines, res, wall, peak = _suite("1")
     counts = _read_counts()
     _check_counts("phase 11 config 1", counts, res["1"]["steps"])
-    report("1", lines, res, wall, peak)
+    report("1", lines, wall, peak)
     cfg1 = res["1"]["cfg"]
     # one camera's frames 0 and 2, the pair phase 3 tracks across, and the
     # two cameras' frames 0 and 1, 150 mm apart, as config 1's steps track
@@ -2190,17 +2237,14 @@ def phase_suite(card: str):
 
     # config 2: window BA 10 x 500
     lines, res, wall, peak = _suite("2")
-    by = report("2", lines, res, wall, peak)["2_window_ba_10x500"]["detail"]
+    by = report("2", lines, wall, peak)["2_window_ba_10x500"]["detail"]
     if not (math.isfinite(by["cost"]) and by["lm_iters"] > 0):
         raise AssertionError(f"config 2: cost {by['cost']}, lm_iters {by['lm_iters']}")
 
     # config 4: the fleet of 64 at goal seed 2, on the card and on the CPU
     lines, res, wall, peak = _suite("4")
     goals = res["4"]["goals"]
-    # the busy share over 30 of the 300 steps, as phase 8's profile
-    by = report("4", lines, res, wall, peak,
-                {"4 (30 steps)": lambda: sim.rollout(goals, n_steps=30)}
-                )["4_closed_loop_64_rollouts"]["detail"]
+    by = report("4", lines, wall, peak)["4_closed_loop_64_rollouts"]["detail"]
     cpu_res = {}
     with contextlib.redirect_stdout(io.StringIO()):
         bench_suite.main(["--configs", "4", "--device", "cpu"], results=cpu_res)
@@ -2227,11 +2271,7 @@ def phase_suite(card: str):
     # the four-shard solve, the multi-robot map
     lines, res, wall, peak = _suite("5")
     mr = res["5_multi_robot"]
-    # the multi-robot map's busy share over one of its three sweeps
-    report("5", lines, res, wall, peak,
-           {"5": res["5"]["run"], "5_sharded": res["5_sharded"]["run"],
-            "5_multi_robot (1 sweep)": lambda: multi_robot.solve_shared_map(
-                *mr["args"], cfg=mr["cfg"], sweeps=1)})
+    report("5", lines, wall, peak)
     r5, cfg5, args5 = res["5"]["result"], res["5"]["cfg"], res["5"]["args"]
     cost, cost0 = float(r5.cost), float(r5.cost0)
     ate, ate0 = res["5"]["ate_mm"], res["5"]["ate0_mm"]
@@ -2867,13 +2907,14 @@ CUPTI_NS_PER_OP = 200
 
 def _gate_profile(name: str, p: dict) -> None:
     """A profile's busy share at most 100 % (beyond the profiler's own
-    time stamps, CUPTI_NS_PER_OP a device operation), and in the trace B1's
-    and B2's launches (where the run made any) equal to the port's
-    counters."""
+    time stamps, CUPTI_NS_PER_OP a device operation), its capture complete
+    (``_gate_capture``), and in the trace B1's and B2's launches (where the
+    run made any) equal to the port's counters."""
     stamps_ms = CUPTI_NS_PER_OP * 1e-6 * p["device_ops"] / p["units"]
     if not p["device_ms"] <= p["wall_ms"] + stamps_ms:
         raise AssertionError(f"{name}: device busy share {p['busy_share']:.4f} over 100 % "
                              f"by more than the profiler's stamps ({stamps_ms:.3f} ms a unit)")
+    _gate_capture(name, p["audit"])
     if p["traced_launches"] != p["counted_launches"]:
         rows = {k: v for k, v in p["counts"].items() if "track" in k or "pyramid" in k}
         raise AssertionError(f"{name}: launches in the trace {p['traced_launches']} differ "
@@ -2881,11 +2922,12 @@ def _gate_profile(name: str, p: dict) -> None:
                              f"named track or pyramid: {rows}")
 
 
-def _gate_export(shortfall: dict | None, spans: dict) -> None:
+def _gate_export(shortfall: dict | None, spans: dict, audit: dict | None = None) -> None:
     """The exported trace (the detail pass, host events too): B1's and B2's
     rows equal to the port's counters over that pass (``shortfall``,
     {kernel: [rows, counted]} from trace_detail), each row in the span that
-    launched it (``spans``: {category: {span: rows}})."""
+    launched it (``spans``: {category: {span: rows}}), and, with
+    trace_detail's ``audit``, no launch whose kernel the trace lost."""
     if shortfall is None or set(shortfall) != {"newton_track", "pyramid_flat"} \
             or any(rows != counted for rows, counted in shortfall.values()):
         raise AssertionError(f"trace_detail: B1/B2 rows in the exported trace differ from the "
@@ -2893,6 +2935,32 @@ def _gate_export(shortfall: dict | None, spans: dict) -> None:
     if set(spans.get("newton_track", {})) != {"track_sweep"} \
             or set(spans.get("pyramid_flat", {})) != {"pyramid"}:
         raise AssertionError(f"trace_detail: B1/B2 rows missing or outside their spans: {spans}")
+    if audit is not None and audit["lost_launches"]:
+        raise AssertionError(f"trace_detail: {audit['lost_launches']} of "
+                             f"{audit['kernel_launches']} launches in the exported trace lost "
+                             f"their kernel: {json.dumps(audit)}")
+
+
+def _busy_lines(busy: dict, card: str) -> dict:
+    """The busy shares that phase 14's fresh process took for phases 8 and
+    11 (``bench_suite.busy_works``' lines, config 5's from profile_cg's
+    padded solve), each capture audited: phase 11's lines printed as they
+    come, phase 8's fleet a step. Returns {"suite": {line: figures},
+    "fleet": phase 8's profile}."""
+    for line, figures in busy.items():
+        _gate_capture(f"the busy share of {line}", figures["audit"])
+    suite = {line: figures for line, figures in busy.items() if line != "fleet"}
+    for line, figures in suite.items():
+        print(f"phase 11 line {line} on {card} (busy share in phase 14's fresh process): "
+              f"{json.dumps(figures)}", flush=True)
+    f, n = busy["fleet"], FLEET_PROFILE_STEPS
+    fleet = {"steps": n, "launches_per_step": f["kernel_launches"] / n,
+             "device_busy_ms_per_step": f["device_busy_ms"] / n,
+             "wall_ms_per_step": f["wall_ms"] / n, "device_busy_share": f["busy_share"],
+             "audit": f["audit"], "retakes": f["retakes"]}
+    print(f"phase 8 fleet on {card} (profile in phase 14's fresh process): profile of {n} steps: "
+          f"{json.dumps(fleet)}", flush=True)
+    return {"suite": suite, "fleet": fleet}
 
 
 def phase_profilers(warm, card: str):
@@ -2955,14 +3023,25 @@ def phase_profilers(warm, card: str):
         for name, run_slam in (("default", True), ("noslam", False))])
     # the profiled passes and the config-5 tools in one fresh process
     # (ROADMAP C6): the job goes under the checkout's build/, phase 13's warm
-    # state with it
+    # state with it, and so do phase 8's fleet profile and phase 11's busy
+    # shares (config 5's from profile_cg's padded solve)
     job_dir = str(Path(__file__).resolve().parent / "build" / "profile14")
     profile_trace.write_job(job_dir, warm, torch.stack(frames[:TRACE_FRAMES]), cfg, top=15,
                             cg={"layouts": ["scatter", "padded"], "gn_iters": 5, "cg_iters": 20,
-                                "top": 10, "small": False, "shards": [1, 2, 4, 8]})
+                                "top": 10, "small": False, "shards": [1, 2, 4, 8]},
+                            busy={"small": False, "steps": FLEET_PROFILE_STEPS,
+                                  "fleet_goals": FLEET_GOALS})
     t_job = time.perf_counter()
     job = profile_trace.run_job(job_dir, dev, JOB_TIMEOUT_S)
     times["fresh process"] = time.perf_counter() - t_job
+    retakes = {k: r["figures"]["retakes"] for k, r in job["tools"].items()
+               if "retakes" in r["figures"]}
+    retakes["export"] = job["tools"]["profile_trace"]["figures"]["trace_retakes"]
+    retakes.update({f"busy {k}": f["retakes"] for k, f in job["busy"].items()})
+    print(f"phase 14 fresh process: {times['fresh process']:.1f} s; tools "
+          f"{json.dumps({k: round(r['s'], 1) for k, r in job['tools'].items()})}; busy shares "
+          f"{job['busy_s']:.1f} s; captures taken again (a lost kernel) {json.dumps(retakes)}",
+          flush=True)
 
     def replayed(r):
         def fn(emit):
@@ -2971,11 +3050,13 @@ def phase_profilers(warm, card: str):
             return r["figures"]
         return fn
 
-    for name, r in job["tools"].items():
+    for name, r in job["tools"].items():  # a profile's figures only once they pass its gates
+        if name in ("profile_trace", "profile_cg scatter", "profile_cg padded"):
+            _gate_profile(name, r["figures"])
         tool(name, replayed(r))
         times[name] = r["s"]
-    for name in ("profile_trace", "profile_cg scatter", "profile_cg padded"):
-        _gate_profile(name, summary[name])
+    busy = _busy_lines(job["busy"], card)
+    times["busy shares"] = job["busy_s"]
     p = summary["profile_trace"]
     want = {"pyramid_flat": 2 * TRACE_FRAMES}
     if p["counted_launches"]["pyramid_flat"] != want["pyramid_flat"] \
@@ -3000,7 +3081,7 @@ def phase_profilers(warm, card: str):
     # time stamps sit against the host's
     print(f"phase 14 trace_detail: B1/B2 rows against the counters over the exported pass "
           f"{json.dumps(td['shortfall'])}; launches {json.dumps(td['audit'])}", flush=True)
-    _gate_export(td["shortfall"], spans)
+    _gate_export(td["shortfall"], spans, td["audit"])
     for r in rows[:10]:
         print(f"phase 14 trace_detail: {r['occ']} x {r['name'][:100]} [{r['cat']}] "
               f"{r['us'] / p['trace_units']:.1f} us/frame, spans {r['spans']}", flush=True)
@@ -3022,7 +3103,7 @@ def phase_profilers(warm, card: str):
     summary["launches"] = counts
     print(f"phase 14 tools on {card}: {json.dumps(times)}; launches {counts}; "
           f"phase {summary['phase_s']:.1f} s", flush=True)
-    return counts, summary
+    return counts, summary, busy
 
 
 def main() -> int:
@@ -3098,8 +3179,11 @@ def main() -> int:
     bench_counts, bench_sum, warm = phase_bench(ps, card)
     del ps
     took("phase 13")
-    tool_counts, tools = phase_profilers(warm, card)
+    tool_counts, tools, busy = phase_profilers(warm, card)
     del warm
+    for line, figures in busy["suite"].items():  # by bench_suite config
+        suite[line.split("_")[0]].setdefault("profile", {})[line] = figures
+    loop["fleet"]["profile"] = busy["fleet"]
     took("phase 14")
     for e in entries:  # the main path's kernels: phases 4, 6 and 8-14
         e["launches"] += (loop_counts[e["name"]] + parity_counts[e["name"]]

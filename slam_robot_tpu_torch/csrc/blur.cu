@@ -6,13 +6,28 @@
 //
 // sep5_reflect101: one separable 5-tap correlation with reflect-101 borders,
 // optionally decimating 2x in the store; the kernel behind the public
-// blur() and pyr_down(). One 32x8-thread block per 32x32 tile of output
-// pixels loads its input tile plus the 2-pixel halo into shared memory once,
-// with the reflect-101 index map applied at load time, runs the vertical
-// pass into a second shared buffer, then the horizontal pass. With stride 2
-// only the even input rows and columns are computed: the decimation happens
-// in the store. Taps accumulate in ascending order (acc = k0*x0; acc +=
-// k1*x1; ...) as in blur.py:43-52.
+// blur() and pyr_down(). Taps accumulate in ascending order (acc = k0*x0;
+// acc += k1*x1; ...) as in blur.py:43-52, the vertical pass first.
+// What bounds it: bytes (a 480x640 blur reads and writes 1.2 MB each, 0.73
+// us at 3.35 TB/s) and, at the pyramid's smaller levels, a launch's latency.
+// Design:
+// - the stride S is a template parameter; a block of kSepThreads = 128
+//   threads takes a tile of SepTile<S>::kRows x kCols outputs (16 x 124 at
+//   S = 1, 8 x 62 at S = 2), so that the tile's input span, S*(kCols-1)+5
+//   columns, fits the 128 threads: 180 blocks at 480x640 either way (one
+//   wave over 132 SMs), one block at 15x20;
+// - vertical pass in registers: thread j owns input column S*x0 - 2 + j of
+//   the span (reflected once) and loads its S*(kRows-1)+5 input rows, each
+//   row's reflect-101 index a warp-uniform scalar, all loads independent and
+//   in flight together (coalesced 4-byte loads, a warp reads 128 B a row);
+//   it keeps the rows in registers and writes only its kRows vertical sums
+//   to shared memory: one buffer of kRows x 128 floats, one barrier;
+// - horizontal pass: a thread takes kVec adjacent outputs of a row (4 at S
+//   = 1, 2 at S = 2), reads the 8 sums they need as two 16-byte shared loads
+//   and stores them as one 16-byte (8-byte) store where the row allows (Wo a
+//   multiple of kVec), else element by element.
+// Rows and columns of a tile that hang past the image are loaded clamped and
+// never stored.
 //
 // pyramid_flat: the whole flat, edge-padded pyramid of a grey image, the
 // sigma0 blur at level 0 and (pyrDown + sigma_down blur) for every further
@@ -57,8 +72,19 @@
 
 namespace {
 
-constexpr int kTile = 32;                          // output tile edge
-constexpr int kMaxIn = 2 * (kTile - 1) + 5;        // input tile edge at stride 2
+constexpr int kSepThreads = 128;  // threads a block; input columns of a tile's span
+
+// the output tile of a block at stride S; S*(kCols-1)+5 <= kSepThreads
+template <int S>
+struct SepTile;
+template <>
+struct SepTile<1> {
+  static constexpr int kRows = 16, kCols = 124, kVec = 4;
+};
+template <>
+struct SepTile<2> {
+  static constexpr int kRows = 8, kCols = 62, kVec = 2;
+};
 
 __device__ __forceinline__ int reflect101(int i, int n) {
   // OpenCV BORDER_REFLECT_101 for |overhang| < n; clamped for tiles that
@@ -68,57 +94,80 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-__global__ void sep5_reflect101_kernel(const float* __restrict__ in,
-                                       float* __restrict__ out, int H, int W,
-                                       int Ho, int Wo, int stride, float k0,
-                                       float k1, float k2, float k3,
-                                       float k4) {
-  __shared__ float tile[kMaxIn][kMaxIn + 1];
-  __shared__ float vert[kTile][kMaxIn + 1];
+template <int S>
+__global__ void __launch_bounds__(kSepThreads)
+sep5_reflect101_kernel(const float* __restrict__ in, float* __restrict__ out, int H, int W,
+                       int Ho, int Wo, float k0, float k1, float k2, float k3, float k4) {
+  using T = SepTile<S>;
+  constexpr int kIn = S * (T::kRows - 1) + 5;  // input rows a tile reads
+  constexpr int kGroups = T::kCols / T::kVec;  // output groups a tile row holds
+  static_assert(S * (T::kCols - 1) + 5 <= kSepThreads, "the span must fit the threads");
+  static_assert(4 * (kGroups - 1) + 8 <= kSepThreads, "a group's sums must lie in the row");
+  __shared__ __align__(16) float vsum[T::kRows][kSepThreads];
 
-  const int oy0 = blockIdx.y * kTile;
-  const int ox0 = blockIdx.x * kTile;
-  const int iy0 = oy0 * stride - 2;  // input row of tile[0]
-  const int ix0 = ox0 * stride - 2;
-  const int in_h = stride * (kTile - 1) + 5;
-  const int in_w = in_h;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int nthreads = blockDim.x * blockDim.y;
-  const int tid = ty * blockDim.x + tx;
-
-  for (int e = tid; e < in_h * in_w; e += nthreads) {
-    const int r = e / in_w, c = e % in_w;
-    tile[r][c] = in[reflect101(iy0 + r, H) * W + reflect101(ix0 + c, W)];
+  const int oy0 = blockIdx.y * T::kRows, ox0 = blockIdx.x * T::kCols;
+  const int j = threadIdx.x;
+  const float* src = in + reflect101(S * ox0 - 2 + j, W);
+  float x[kIn];
+#pragma unroll
+  for (int i = 0; i < kIn; ++i)
+    x[i] = src[static_cast<long long>(reflect101(S * oy0 - 2 + i, H)) * W];
+#pragma unroll
+  for (int r = 0; r < T::kRows; ++r) {
+    const float* q = x + S * r;
+    float acc = k0 * q[0];
+    acc = acc + k1 * q[1];
+    acc = acc + k2 * q[2];
+    acc = acc + k3 * q[3];
+    acc = acc + k4 * q[4];
+    vsum[r][j] = acc;
   }
   __syncthreads();
 
-  // vertical pass: output row r reads input rows stride*r + 0..4
-  for (int e = tid; e < kTile * in_w; e += nthreads) {
-    const int r = e / in_w, c = e % in_w;
-    const int b = stride * r;
-    float acc = k0 * tile[b][c];
-    acc = acc + k1 * tile[b + 1][c];
-    acc = acc + k2 * tile[b + 2][c];
-    acc = acc + k3 * tile[b + 3][c];
-    acc = acc + k4 * tile[b + 4][c];
-    vert[r][c] = acc;
-  }
-  __syncthreads();
-
-  // horizontal pass + store (decimated when stride == 2)
-  for (int r = ty; r < kTile; r += blockDim.y) {
-    const int oy = oy0 + r;
-    const int c = tx;
-    const int ox = ox0 + c;
+  // group g of row r: outputs ox0 + kVec*g + u read the sums of span columns
+  // 4g + S*u + 0..4 (S*kVec = 4 at either stride)
+  const bool vec = Wo % T::kVec == 0;
+  for (int e = j; e < T::kRows * kGroups; e += kSepThreads) {
+    const int r = e / kGroups, g = e - r * kGroups;
+    const int oy = oy0 + r, ox = ox0 + T::kVec * g;
     if (oy >= Ho || ox >= Wo) continue;
-    const int b = stride * c;
-    float acc = k0 * vert[r][b];
-    acc = acc + k1 * vert[r][b + 1];
-    acc = acc + k2 * vert[r][b + 2];
-    acc = acc + k3 * vert[r][b + 3];
-    acc = acc + k4 * vert[r][b + 4];
-    out[oy * Wo + ox] = acc;
+    const float4 a = *reinterpret_cast<const float4*>(&vsum[r][4 * g]);
+    const float4 b = *reinterpret_cast<const float4*>(&vsum[r][4 * g + 4]);
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    float o[T::kVec];
+#pragma unroll
+    for (int u = 0; u < T::kVec; ++u) {
+      const float* q = v + S * u;
+      float acc = k0 * q[0];
+      acc = acc + k1 * q[1];
+      acc = acc + k2 * q[2];
+      acc = acc + k3 * q[3];
+      acc = acc + k4 * q[4];
+      o[u] = acc;
+    }
+    float* dst = out + static_cast<long long>(oy) * Wo + ox;
+    if (vec) {
+      if constexpr (T::kVec == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+        *reinterpret_cast<float2*>(dst) = make_float2(o[0], o[1]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < T::kVec; ++u)
+        if (ox + u < Wo) dst[u] = o[u];
+    }
   }
+}
+
+template <int S>
+int launch_sep5(const float* in, float* out, int H, int W, int Ho, int Wo, const float* k,
+                cudaStream_t s) {
+  using T = SepTile<S>;
+  const dim3 grid((Wo + T::kCols - 1) / T::kCols, (Ho + T::kRows - 1) / T::kRows);
+  sep5_reflect101_kernel<S><<<grid, kSepThreads, 0, s>>>(in, out, H, W, Ho, Wo, k[0], k[1],
+                                                         k[2], k[3], k[4]);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int kMaxLevels = 8;
@@ -335,15 +384,20 @@ size_t g_smem_tiles = 0, g_smem_walk = 0;
 
 }  // namespace
 
+// The output's [Ho, Wo] must be the input's at stride 1 and ((H+1)/2,
+// (W+1)/2) at stride 2; H, W >= 3 (one reflection reaches every index).
 extern "C" int sep5_reflect101(const void* in, void* out, int H, int W,
                                int Ho, int Wo, int stride, float k0, float k1,
                                float k2, float k3, float k4, void* stream) {
-  dim3 block(kTile, 8);
-  dim3 grid((Wo + kTile - 1) / kTile, (Ho + kTile - 1) / kTile);
-  sep5_reflect101_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), H, W, Ho, Wo,
-      stride, k0, k1, k2, k3, k4);
-  return static_cast<int>(cudaGetLastError());
+  const bool dims = stride == 1 ? Ho == H && Wo == W
+                                : stride == 2 && Ho == (H + 1) / 2 && Wo == (W + 1) / 2;
+  if (H < 3 || W < 3 || !dims) return static_cast<int>(cudaErrorInvalidValue);
+  const float k[5] = {k0, k1, k2, k3, k4};
+  const float* src = static_cast<const float*>(in);
+  float* dst = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return stride == 1 ? launch_sep5<1>(src, dst, H, W, Ho, Wo, k, s)
+                     : launch_sep5<2>(src, dst, H, W, Ho, Wo, k, s);
 }
 
 extern "C" int pyramid_params_size() { return static_cast<int>(sizeof(PyrParams)); }

@@ -14,24 +14,53 @@
 // Design. A window start is clamped so the window fits the image, as
 // lax.dynamic_slice clamps (and so a position never reads out of bounds).
 // probe_windows: one block per lane, threads striding over the window.
-// probe_windows_async: the counterpart of the TPU's DMA copies with
-// semaphores is cp.async into shared memory, then a store. One block runs
-// all lanes, as the single TPU program did: case 0 starts and waits each
-// lane's copy in turn; case 1 starts every lane's copy (one commit group per
-// lane) and then waits for all; case 2 first stages the positions in shared
-// memory (the probe's SMEM scratch) and then copies as case 0. The copies
-// are 4 bytes wide: a window row starts at any column, so 16-byte copies
-// would be misaligned. probe_fill: the positions' column 0, scaled, is staged
-// in shared memory and one of its entries fills the output.
+// probe_fill: the positions' column 0, scaled, is staged in shared memory and
+// one of its entries fills the output.
+//
+// probe_windows_async. The TPU's DMA with semaphores is the copy engine
+// (TMA) with an mbarrier here, and the TPU's serial loop over lanes was the
+// one-core form, not the function: the lanes are spread over blocks, per_block = ceil(F / SMs) a
+// block (one lane a block at the probes' F = 8), so their copies overlap
+// across SMs. A block of kAsyncThreads threads; a lane's window lands in a
+// shared slot of ws rows at a pitch of pitch(ws) floats:
+// - route kBulk: the first warp issues one cp.async.bulk a window row (a row
+//   a thread), of the 16-byte-aligned span of the image row around it (the
+//   row pitch must be a multiple of 16 bytes and the image base on 16
+//   bytes), all completing on one mbarrier whose one arrival expects their
+//   bytes; the threads then store the window from the slot, shifted by its
+//   column's offset in the span (16-byte stores where ws is a multiple of
+//   4). (The TMA's tensor form, cp.async.bulk.tensor with a tensor map
+//   from cuTensorMapEncodeTiled, raised "an illegal instruction" on an
+//   H100 with driver 580.159.03 wherever the box's first column was off 16
+//   bytes, as a window's may be: tests/torch_tma_repro.py.) The barrier's
+//   initialization, and the threads' reads of a slot before the next
+//   copies into it, are fenced against the async proxy.
+// - route kCpAsync, where the bulk copies cannot go (a row pitch that is not
+//   a multiple of 16 bytes, an image base off 16 bytes): 4-byte cp.async
+//   copies by every thread (a window row starts at any column), a commit
+//   group a lane.
+// Each case keeps its discipline per block: kOneByOne starts a lane's copy
+// and waits for it (and stores it) before the next; kAllThenWait starts every
+// copy of the block (a slot a lane) before its first wait; kStaged first
+// stages the block's positions in shared memory (the probe's SMEM scratch),
+// then copies as kOneByOne. Slots are kSlotAlign-aligned. The entry point
+// picks the route and the lanes a block, and refuses a block that would take
+// more than kMaxSmem of shared memory.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 enum WindowCase { kInt = 0, kFloored = 1, kRows = 2, kMasked = 3, kDiagonal = 4 };
 enum AsyncCase { kOneByOne = 0, kAllThenWait = 1, kStaged = 2 };
+enum AsyncRoute { kCpAsync = 0, kBulk = 1 };
 
 constexpr int kThreads = 256;
 constexpr int kStaticSmem = 48 * 1024;
+constexpr int kAsyncThreads = 128;     // threads a block of probe_windows_async
+constexpr int kSlotAlign = 128;        // bytes; a slot's alignment
+constexpr int kMaxSmem = 232448 - 64;  // dynamic shared memory a block may take
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -71,9 +100,12 @@ __global__ void windows_kernel(const float* __restrict__ img,
   }
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(smem)), "l"(gmem)
                : "memory");
 }
 
@@ -85,47 +117,230 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__global__ void windows_async_kernel(const float* __restrict__ img,
-                                     const int* __restrict__ pos,
-                                     float* __restrict__ out, int H, int W,
-                                     int F, int ws, int mode) {
-  extern __shared__ float smem[];  // window slots, then the staged positions
-  const int n = ws * ws;
-  const int slots = mode == kAllThenWait ? F : 1;
-  int* s_pos = reinterpret_cast<int*>(smem + slots * n);
-  const int t = threadIdx.x;
-  const int* p = pos;
-  if (mode == kStaged) {
-    for (int e = t; e < 2 * F; e += blockDim.x) s_pos[e] = pos[e];
-    __syncthreads();
-    p = s_pos;
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+  // the initialization, made by this thread, visible to the async proxy
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The barrier's one arrival, expecting `bytes` more from the copies.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
-  auto start = [&](int f, float* dst) {
-    const int x = clampi(p[2 * f], 0, W - ws);
-    const int y = clampi(p[2 * f + 1], 0, H - ws);
-    for (int e = t; e < n; e += blockDim.x) {
-      cp_async4(dst + e, img + (y + e / ws) * W + x + e % ws);
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both on 16
+// bytes), completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// This thread's generic accesses to shared memory (the threads' reads of a
+// slot, seen through a barrier) ordered before the async proxy's next ones.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// floats between two rows of a window in its slot: room for the window's
+// 16-byte-aligned span (its first column rounded down to 4, its end up)
+__host__ __device__ __forceinline__ int pitch(int ws) { return (ws + 3) / 4 * 4 + 4; }
+
+__host__ __device__ __forceinline__ int slot_bytes(int ws) {
+  return (ws * pitch(ws) * 4 + kSlotAlign - 1) / kSlotAlign * kSlotAlign;
+}
+
+// Lanes [f0, f0 + nl) of this block and their positions (staged in shared
+// memory after the slots for kStaged); `slots` slots of slot_bytes(ws).
+struct Lanes {
+  int f0, nl;
+  const int* p;
+};
+
+__device__ __forceinline__ Lanes block_lanes(const int* pos, unsigned char* smem, int F,
+                                             int per_block, int slots, int ws, int mode) {
+  Lanes l{static_cast<int>(blockIdx.x) * per_block, 0, nullptr};
+  l.nl = min(per_block, F - l.f0);
+  l.p = pos + 2 * l.f0;
+  if (mode == kStaged) {
+    int* s_pos = reinterpret_cast<int*>(smem + slots * slot_bytes(ws));
+    for (int e = threadIdx.x; e < 2 * l.nl; e += blockDim.x) s_pos[e] = l.p[e];
+    __syncthreads();
+    l.p = s_pos;
+  }
+  return l;
+}
+
+// out[f] (at `o`, on 16 bytes) from a slot whose row r holds the window's row
+// at columns [shift, shift + ws), by all threads: 16-byte stores where a row
+// is a whole number of them (ws a multiple of 4)
+__device__ __forceinline__ void store_window(float* __restrict__ o, const float* slot, int ws,
+                                             int shift) {
+  const int P = pitch(ws);
+  if (ws % 4 == 0) {
+    for (int e = 4 * threadIdx.x; e < ws * ws; e += 4 * blockDim.x) {
+      const float* q = slot + (e / ws) * (P - ws) + shift + e;
+      *reinterpret_cast<float4*>(o + e) = make_float4(q[0], q[1], q[2], q[3]);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < ws * ws; e += blockDim.x) {
+    const int r = e / ws;
+    o[e] = slot[r * P + shift + e - r * ws];
+  }
+}
+
+__global__ void __launch_bounds__(kAsyncThreads)
+windows_bulk_kernel(const float* __restrict__ img, const int* __restrict__ pos,
+                    float* __restrict__ out, int H, int W, int F, int ws, int per_block,
+                    int mode) {
+  extern __shared__ __align__(kSlotAlign) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const int slots = mode == kAllThenWait ? per_block : 1;
+  const Lanes l = block_lanes(pos, smem, F, per_block, slots, ws, mode);
+  const int stride = slot_bytes(ws);
+  // warp 0 issues the copies, a row a lane; its first thread the expects
+  const bool issuer = threadIdx.x < 32, first = threadIdx.x == 0;
+  if (first) mbar_init(&bar);
+  __syncthreads();
+  // lane i's window: its start, and its rows' 16-byte-aligned span [x0, x0 + len)
+  struct Span {
+    int x, y, x0, len;
+  };
+  auto span = [&](int i) {
+    const int x = clampi(l.p[2 * i], 0, W - ws), y = clampi(l.p[2 * i + 1], 0, H - ws);
+    return Span{x, y, x & ~3, ((x + ws + 3) & ~3) - (x & ~3)};
+  };
+  // warp 0 issues lane i's row copies into `slot`
+  auto issue = [&](const Span& w, unsigned char* slot) {
+    for (int r = threadIdx.x; r < ws; r += 32)
+      bulk_load(slot + 4 * r * pitch(ws), img + static_cast<size_t>(w.y + r) * W + w.x0,
+                4u * w.len, &bar);
+  };
+  float* o = out + static_cast<size_t>(l.f0) * ws * ws;
+  if (mode == kAllThenWait) {
+    if (issuer) {
+      // the barrier's one arrival expects every copy of the block
+      if (first) {
+        unsigned bytes = 0;
+        for (int i = 0; i < l.nl; ++i) bytes += 4u * span(i).len * ws;
+        mbar_expect(&bar, bytes);
+      }
+      __syncwarp();
+      for (int i = 0; i < l.nl; ++i) issue(span(i), smem + i * stride);
+    }
+    mbar_wait(&bar, 0);
+    for (int i = 0; i < l.nl; ++i) {
+      const Span w = span(i);
+      store_window(o + static_cast<size_t>(i) * ws * ws,
+                   reinterpret_cast<const float*>(smem + i * stride), ws, w.x - w.x0);
+    }
+  } else {
+    for (int i = 0; i < l.nl; ++i) {
+      const Span w = span(i);
+      if (issuer) {
+        if (first) mbar_expect(&bar, 4u * w.len * ws);
+        __syncwarp();
+        issue(w, smem);
+      }
+      mbar_wait(&bar, i & 1);
+      store_window(o + static_cast<size_t>(i) * ws * ws, reinterpret_cast<const float*>(smem),
+                   ws, w.x - w.x0);
+      __syncthreads();  // the slot is read before the next lane's copies land there
+      if (issuer) fence_async();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kAsyncThreads)
+windows_cp_async_kernel(const float* __restrict__ img, const int* __restrict__ pos,
+                        float* __restrict__ out, int H, int W, int F, int ws, int per_block,
+                        int mode) {
+  extern __shared__ __align__(kSlotAlign) unsigned char smem[];
+  const int slots = mode == kAllThenWait ? per_block : 1;
+  const Lanes l = block_lanes(pos, smem, F, per_block, slots, ws, mode);
+  const int P = pitch(ws);
+  const int stride = slot_bytes(ws) / 4;  // floats
+  float* slot0 = reinterpret_cast<float*>(smem);
+  auto start = [&](int i, float* dst) {
+    const int x = clampi(l.p[2 * i], 0, W - ws);
+    const int y = clampi(l.p[2 * i + 1], 0, H - ws);
+    for (int e = threadIdx.x; e < ws * ws; e += blockDim.x) {
+      const int r = e / ws, c = e - r * ws;
+      cp_async4(dst + r * P + c, img + static_cast<size_t>(y + r) * W + x + c);
     }
     cp_async_commit();
   };
-  auto store = [&](int f, const float* src) {
-    float* o = out + static_cast<size_t>(f) * n;
-    for (int e = t; e < n; e += blockDim.x) o[e] = src[e];
-  };
+  float* o = out + static_cast<size_t>(l.f0) * ws * ws;
   if (mode == kAllThenWait) {
-    for (int f = 0; f < F; ++f) start(f, smem + f * n);
+    for (int i = 0; i < l.nl; ++i) start(i, slot0 + i * stride);
     cp_async_wait_all();
     __syncthreads();
-    for (int f = 0; f < F; ++f) store(f, smem + f * n);
+    for (int i = 0; i < l.nl; ++i)
+      store_window(o + static_cast<size_t>(i) * ws * ws, slot0 + i * stride, ws, 0);
   } else {
-    for (int f = 0; f < F; ++f) {
-      start(f, smem);
+    for (int i = 0; i < l.nl; ++i) {
+      start(i, slot0);
       cp_async_wait_all();
       __syncthreads();
-      store(f, smem);
+      store_window(o + static_cast<size_t>(i) * ws * ws, slot0, ws, 0);
       __syncthreads();  // the slot is reused by the next lane's copy
     }
   }
+}
+
+// Allow `bytes` of dynamic shared memory for `kernel` (above the default
+// 48 KB); `done` remembers the largest size already allowed.
+int allow_smem(const void* kernel, size_t bytes, size_t* done) {
+  if (bytes <= 48 * 1024 || bytes <= *done) return 0;
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+  if (err == 0) *done = bytes;
+  return err;
+}
+
+size_t g_smem_async[2] = {0, 0};
+
+// kBulk where every window row's 16-byte-aligned span starts on 16 bytes (a
+// row pitch that is a multiple of 16 bytes, an image base on 16 bytes), else
+// kCpAsync
+int async_route(const void* img, int W) {
+  return (4LL * W) % 16 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 ? kBulk : kCpAsync;
+}
+
+// The current device's SMs, read once a device.
+int sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static int counts[kDevices] = {};
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err) return err;
+  if (dev >= kDevices)
+    return static_cast<int>(cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev));
+  if (counts[dev] == 0) {
+    err = static_cast<int>(
+        cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev));
+    if (err) return err;
+  }
+  *sms = counts[dev];
+  return 0;
 }
 
 __global__ void fill_kernel(const int* __restrict__ pos, float* __restrict__ out,
@@ -151,17 +366,41 @@ extern "C" int probe_windows(const void* img, const void* pos, const void* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The route of probe_windows_async for an image `W` floats wide at `img`.
+extern "C" int probe_windows_async_route(const void* img, int W) {
+  return async_route(img, W);
+}
+
+// F windows at clamped int32 positions: the route by async_route, the F
+// lanes over the card's SMs (ceil(F / SMs) a block); cudaErrorInvalidValue
+// where a block's shared memory would pass kMaxSmem.
 extern "C" int probe_windows_async(const void* img, const void* pos, void* out,
-                                   int H, int W, int F, int ws, int mode,
-                                   void* stream) {
+                                   int H, int W, int F, int ws, int mode, void* stream) {
   if (ws <= 0 || ws > H || ws > W || F <= 0 || mode < kOneByOne || mode > kStaged)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t slots = mode == kAllThenWait ? F : 1;
-  const size_t bytes = slots * ws * ws * sizeof(float) + 2 * F * sizeof(int);
-  if (bytes > kStaticSmem) return static_cast<int>(cudaErrorInvalidValue);
-  windows_async_kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<const int*>(pos),
-      static_cast<float*>(out), H, W, F, ws, mode);
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err) return err;
+  const int per_block = (F + sms - 1) / sms;
+  const size_t slots = mode == kAllThenWait ? per_block : 1;
+  const size_t bytes = slots * slot_bytes(ws) + (mode == kStaged ? 2 * per_block * sizeof(int) : 0);
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int route = async_route(img, W);
+  const void* kernel = route == kBulk ? reinterpret_cast<const void*>(windows_bulk_kernel)
+                                      : reinterpret_cast<const void*>(windows_cp_async_kernel);
+  err = allow_smem(kernel, bytes, &g_smem_async[route]);
+  if (err) return err;
+  const int blocks = (F + per_block - 1) / per_block;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* im = static_cast<const float*>(img);
+  const int* p = static_cast<const int*>(pos);
+  float* o = static_cast<float*>(out);
+  if (route == kBulk)
+    windows_bulk_kernel<<<blocks, kAsyncThreads, bytes, s>>>(im, p, o, H, W, F, ws, per_block,
+                                                             mode);
+  else
+    windows_cp_async_kernel<<<blocks, kAsyncThreads, bytes, s>>>(im, p, o, H, W, F, ws,
+                                                                 per_block, mode);
   return static_cast<int>(cudaGetLastError());
 }
 

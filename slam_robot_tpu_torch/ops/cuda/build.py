@@ -49,6 +49,8 @@ SIGNATURES = {
     "probe_windows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # img, pos, out, H, W, F, WS, case, stream
     "probe_windows_async": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # img, W
+    "probe_windows_async_route": [_P, _I],
     # pos, out, F, n_out, idx, scale, stream
     "probe_fill": [_P, _P, _I, _I, _I, _I, _P],
     # x, out, R, C, case, stream

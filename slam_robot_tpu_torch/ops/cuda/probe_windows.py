@@ -23,8 +23,11 @@ FILL = build.Kernel("probe_fill", SOURCE)
 INT, FLOORED, ROWS, MASKED, DIAGONAL = range(5)
 # cases of probe_windows_async
 ONE_BY_ONE, ALL_THEN_WAIT, STAGED = range(3)
-
-_SMEM_BYTES = 48 * 1024
+# its routes (csrc/probe_windows.cu AsyncRoute): the copy engine's bulk
+# copies (the TMA's non-tensor form), or 4-byte cp.async for the images they
+# cannot take
+CP_ASYNC, BULK = range(2)
+ROUTE_NAMES = {CP_ASYNC: "cp.async", BULK: "tma-bulk"}
 
 
 def windows_plain(img, pos, size: int, case: int = INT, mask=None):
@@ -81,24 +84,35 @@ def windows(img, pos, size: int, case: int = INT, mask=None):
     return out
 
 
+def async_route(img) -> int:
+    """The route that :func:`windows_async` takes for ``img`` [H, W] float32
+    on the card (the entry point's own choice): BULK where every window
+    row's 16-byte-aligned span starts on 16 bytes (a row pitch that is a
+    multiple of 16 bytes, an image base on 16 bytes), else CP_ASYNC."""
+    return build.load_library()["probe_windows_async_route"](img.data_ptr(), img.shape[1])
+
+
 def windows_async(img, pos, size: int, case: int = ONE_BY_ONE):
-    """The windows of :func:`windows` (int32 positions) copied by cp.async
-    through shared memory: ONE_BY_ONE starts and waits each lane's copy in
-    turn, ALL_THEN_WAIT starts all then waits, STAGED first stages the
-    positions in shared memory. The plain version is ``windows_plain``."""
+    """The windows of :func:`windows` (int32 positions) copied
+    asynchronously through shared memory, the lanes spread over the card's
+    SMs, by the copy engine's bulk copies or by cp.async
+    (:func:`async_route`): ONE_BY_ONE starts and waits each lane's copy in
+    turn, ALL_THEN_WAIT starts all of a block's copies then waits, STAGED
+    first stages the positions in shared memory. The entry point refuses a
+    block whose shared memory would pass what the card allows (a launch
+    error here). The plain version is ``windows_plain``."""
     if case not in (ONE_BY_ONE, ALL_THEN_WAIT, STAGED):
         raise ValueError(f"unknown case {case}")
     if not img.is_cuda:
         return windows_plain(img, pos, size, INT)
     _check_windows(img, pos, size, torch.int32)
     f = pos.shape[0]
-    slots = f if case == ALL_THEN_WAIT else 1
-    if 4 * (slots * size * size + 2 * f) > _SMEM_BYTES:
-        raise ValueError(f"{f} windows of {size}x{size} exceed 48 KB of shared memory")
+    if f == 0:
+        raise ValueError("pos: no lanes")
     h, w = img.shape
     out = torch.empty((f, size, size), dtype=torch.float32, device=img.device)
-    WINDOWS_ASYNC.launch(img.data_ptr(), pos.data_ptr(), out.data_ptr(), h, w, f, size,
-                         case, build.stream_handle(img.device))
+    WINDOWS_ASYNC.launch(img.data_ptr(), pos.data_ptr(), out.data_ptr(), h, w, f, size, case,
+                         build.stream_handle(img.device))
     return out
 
 

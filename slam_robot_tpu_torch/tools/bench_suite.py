@@ -39,6 +39,152 @@ def emit(name, value, unit, **detail):
                       "detail": detail}), flush=True)
 
 
+def replay_track(dev, small: bool) -> dict:
+    """Config 1's work: its config, its 10 rendered frames, the state after
+    3 warm steps, and ``track(ps)``, ``N_TRACK`` steps from ``ps`` without BA
+    (the state after them)."""
+    import torch
+
+    from slam_robot_tpu_torch.config import SlamConfig
+    from slam_robot_tpu_torch.models import pipeline, renderer
+    from slam_robot_tpu_torch.ops import quaternion as quat
+    from slam_robot_tpu_torch.utils import synthetic
+
+    cfg = SlamConfig() if not small else SlamConfig(
+        image_width=160, image_height=120, pyramid_depth=4,
+        max_features=64, max_points=256, max_obs=4096)
+    k = torch.as_tensor(synthetic.reference_intrinsics(cfg), device=dev)
+    world, bright = (torch.as_tensor(a, device=dev) for a in renderer.make_world(600, seed=0))
+    axis = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    frames = []
+    for i in range(10):
+        pair = i // 2
+        q = quat.from_axis_angle(axis, 0.004 * pair)
+        t = torch.tensor([150.0 * (i % 2), 0.0, 15.0 * pair], device=dev)
+        frames.append(renderer.render(q, t, k, world, bright, height=cfg.image_height,
+                                      width=cfg.image_width))
+    ps = pipeline.init(cfg, device=dev)
+    for i in range(3):
+        ps, _ = pipeline.step(ps, frames[i], cfg, run_slam=False)
+
+    def track(ps):
+        for i in range(N_TRACK):
+            ps, _ = pipeline.step(ps, frames[(3 + i) % len(frames)], cfg, run_slam=False)
+        return ps
+
+    return dict(cfg=cfg, images=frames, ps=ps, track=track)
+
+
+def window_ba(dev):
+    """Config 2's work: one solve of the 10-keyframe window over 500
+    landmarks (a call; its result)."""
+    from slam_robot_tpu_torch.config import SlamConfig
+    from slam_robot_tpu_torch.models import slam
+    from slam_robot_tpu_torch.utils import synthetic
+
+    cfg = SlamConfig(max_frames=32, max_points=512, max_obs=8192, max_obs_per_point=32)
+    s = synthetic.build_scene(cfg, n_frames=20, n_points=500, pixel_noise=0.3,
+                              point_noise=30.0, device=dev).state
+    return lambda: slam.solve_frames(s, 10, 20, 2.0, cfg)[1]
+
+
+def fleet_goals(dev, small: bool):
+    """Config 4's goals: [n, 3] float32, x and y uniform in [2, 7] m (seed 2),
+    64 rollouts (16 with ``small``)."""
+    import numpy as np
+    import torch
+
+    n_roll = 16 if small else 64
+    return torch.as_tensor(np.concatenate(
+        [np.random.default_rng(2).uniform(2, 7, (n_roll, 2)), np.zeros((n_roll, 1))],
+        axis=1).astype(np.float32), device=dev)
+
+
+def shard_mesh(dev):
+    """Config 5's mesh of SHARDS row blocks over the visible devices in turn
+    (all four on one card)."""
+    import torch
+
+    from slam_robot_tpu_torch.parallel import mesh as mesh_mod
+
+    cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+             if dev.type == "cuda" else [dev])
+    return mesh_mod.make_mesh({"model": SHARDS},
+                              devices=[cards[i % len(cards)] for i in range(SHARDS)])
+
+
+def multi_robot_problem(dev, small: bool) -> dict:
+    """Config 5's multi-robot shared map: R robots on the same 24-frame
+    trajectory, one shared table of 400 landmarks perturbed by 60 mm. Its
+    ``args`` and ``cfg`` for ``multi_robot.solve_shared_map``, its sweeps,
+    the perturbed locations and ``point_err(loc)`` (mean mm)."""
+    import numpy as np
+    import torch
+
+    from slam_robot_tpu_torch.config import SlamConfig
+    from slam_robot_tpu_torch.models import slam
+    from slam_robot_tpu_torch.ops import ba
+    from slam_robot_tpu_torch.utils import synthetic
+
+    R = 2 if small else 8
+    mcfg = SlamConfig(max_frames=32, max_points=512, max_obs=16384, max_obs_per_point=32)
+    scene = synthetic.build_scene(mcfg, n_frames=24, n_points=400, seed=0,
+                                  pose_noise=0.005, device=dev)
+    s5 = scene.state
+    rng5 = np.random.default_rng(5)
+    locs = s5.point_loc.clone()
+    locs[:400, :3] += torch.as_tensor(
+        rng5.normal(scale=60.0, size=(400, 3)).astype(np.float32), device=dev)
+    free5, present5 = slam.window_masks(s5, 8, 24)
+    ok5 = slam._obs_ok(s5, s5.n_frames - 24)
+    pack = (s5.frame_quat, s5.frame_trans, s5.frame_cam, s5.obs_frame, s5.obs_point,
+            s5.obs_px, ok5, present5, free5)
+    st = [torch.stack([p] * R) for p in pack]
+    args = (st[0], st[1], st[2], s5.cam_k, locs, s5.point_uncertainty, *st[3:])
+
+    def point_err(loc):
+        pos = loc[:400, :3] / loc[:400, 3:]
+        return float(torch.linalg.norm(pos - scene.true_points[:, :3], dim=1).mean())
+
+    return dict(args=args, cfg=ba.BAConfig(max_iters=5, max_free_frames=8), sweeps=3, robots=R,
+                obs=R * int(s5.obs_frame.shape[0]), locs=locs, point_err=point_err)
+
+
+# config 1's timed steps
+N_TRACK = 8
+
+
+def busy_works(dev, small: bool, steps: int, goals: int, big: tuple) -> dict:
+    """The work whose busy share a profile takes for each line
+    (``profile_trace.busy_share_session``), by line: "1" config 1's
+    N_TRACK timed steps, "2" one window solve, "4" ``steps`` steps of config
+    4's fleet, "5_sharded" the solve on the SHARDS-shard mesh of ``big``
+    (``profile_cg.problem``'s arguments), "5_multi_robot" one sweep of the
+    shared map, and "fleet" ``steps`` steps of run_sim's fleet of ``goals``
+    rollouts (goal seed 0). Config 5's own solve is ``profile_cg``'s."""
+    import functools
+
+    import torch
+
+    from slam_robot_tpu_torch import run_sim
+    from slam_robot_tpu_torch.models import sim
+    from slam_robot_tpu_torch.ops import ba_cg
+    from slam_robot_tpu_torch.parallel import multi_robot
+
+    c1 = replay_track(dev, small)
+    cgc = ba_cg.CGConfig(max_free_frames=big[0].shape[0], gn_iters=5, cg_iters=20,
+                         precond="diag")
+    mr = multi_robot_problem(dev, small)
+    fleet = torch.as_tensor(run_sim.goal_batch(goals, 0), device=dev)
+    return {"1": functools.partial(c1["track"], c1["track"](c1["ps"])),
+            "2": window_ba(dev),
+            "4": functools.partial(sim.rollout, fleet_goals(dev, small), n_steps=steps),
+            "5_sharded": functools.partial(ba_cg.solve_sharded, shard_mesh(dev), *big, cfg=cgc),
+            "5_multi_robot": functools.partial(multi_robot.solve_shared_map, *mr["args"],
+                                               cfg=mr["cfg"], sweeps=1),
+            "fleet": functools.partial(sim.rollout, fleet, n_steps=steps)}
+
+
 def main(argv=None, results: dict | None = None) -> int:
     """Run the configs and print one JSON line per result. ``results``,
     when given, receives each line's inputs and outputs under its config
@@ -56,15 +202,11 @@ def main(argv=None, results: dict | None = None) -> int:
     if unknown:
         ap.error(f"no config {sorted(unknown)}: 1, 2, 3, 4 or 5")
 
-    import numpy as np
     import torch
 
-    from slam_robot_tpu_torch.config import SlamConfig
     from slam_robot_tpu_torch.device import default_device
-    from slam_robot_tpu_torch.models import pipeline, renderer, sim, slam
-    from slam_robot_tpu_torch.ops import ba, ba_cg
-    from slam_robot_tpu_torch.ops import quaternion as quat
-    from slam_robot_tpu_torch.parallel import mesh as mesh_mod
+    from slam_robot_tpu_torch.models import sim
+    from slam_robot_tpu_torch.ops import ba_cg
     from slam_robot_tpu_torch.parallel import multi_robot
     from slam_robot_tpu_torch.utils import synthetic
 
@@ -76,54 +218,22 @@ def main(argv=None, results: dict | None = None) -> int:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    def frames_for(cfg, n, n_pts=600):
-        k = torch.as_tensor(synthetic.reference_intrinsics(cfg), device=dev)
-        world, bright = (torch.as_tensor(a, device=dev)
-                         for a in renderer.make_world(n_pts, seed=0))
-        axis = torch.tensor([0.0, 1.0, 0.0], device=dev)
-        frames = []
-        for i in range(n):
-            pair = i // 2
-            q = quat.from_axis_angle(axis, 0.004 * pair)
-            t = torch.tensor([150.0 * (i % 2), 0.0, 15.0 * pair], device=dev)
-            frames.append(renderer.render(q, t, k, world, bright, height=cfg.image_height,
-                                          width=cfg.image_width))
-        return frames
-
     # ---- config 1: replay, tracking only ----
     if 1 in configs:
-        cfg = SlamConfig() if not small else SlamConfig(
-            image_width=160, image_height=120, pyramid_depth=4,
-            max_features=64, max_points=256, max_obs=4096)
-        frames = frames_for(cfg, 10)
-        ps = pipeline.init(cfg, device=dev)
-        for i in range(3):
-            ps, _ = pipeline.step(ps, frames[i], cfg, run_slam=False)
-        n = 8
-
-        def track(ps):
-            for i in range(n):
-                ps, _ = pipeline.step(ps, frames[(3 + i) % len(frames)], cfg, run_slam=False)
-            return ps
-
+        c1 = replay_track(dev, small)
+        track = c1["track"]
         sync()
         t0 = time.perf_counter()
-        end = track(ps)
+        end = track(c1["ps"])
         sync()
-        dt = (time.perf_counter() - t0) / n
+        dt = (time.perf_counter() - t0) / N_TRACK
         emit("1_replay_track_only", 1.0 / dt, "fps", step_ms=round(dt * 1000, 2))
-        out["1"] = dict(cfg=cfg, images=frames, steps=n + 3, run=lambda: track(end))
+        out["1"] = dict(cfg=c1["cfg"], images=c1["images"], steps=N_TRACK + 3,
+                        run=lambda: track(end))
 
     # ---- config 2: sliding-window BA 10kf x 500 landmarks ----
     if 2 in configs:
-        cfg = SlamConfig(max_frames=32, max_points=512, max_obs=8192, max_obs_per_point=32)
-        scene = synthetic.build_scene(cfg, n_frames=20, n_points=500, pixel_noise=0.3,
-                                      point_noise=30.0, device=dev)
-        s = scene.state
-
-        def run():
-            return slam.solve_frames(s, 10, 20, 2.0, cfg)[1]
-
+        run = window_ba(dev)
         run()
         run()
         sync()
@@ -149,10 +259,8 @@ def main(argv=None, results: dict | None = None) -> int:
 
     # ---- config 4: 64 rollouts ----
     if 4 in configs:
-        n_roll = 16 if small else 64
-        goals = torch.as_tensor(np.concatenate(
-            [np.random.default_rng(2).uniform(2, 7, (n_roll, 2)), np.zeros((n_roll, 1))],
-            axis=1).astype(np.float32), device=dev)
+        goals = fleet_goals(dev, small)
+        n_roll = goals.shape[0]
         sim.rollout(goals, n_steps=300)
         sync()
         t0 = time.perf_counter()
@@ -197,10 +305,7 @@ def main(argv=None, results: dict | None = None) -> int:
 
         # the same solve with the observation tables in SHARDS row blocks;
         # the landmark sums and the reduced camera system add over them
-        cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                 if dev.type == "cuda" else [dev])
-        msh = mesh_mod.make_mesh({"model": SHARDS},
-                                 devices=[cards[i % len(cards)] for i in range(SHARDS)])
+        msh = shard_mesh(dev)
         res_s, dt_s = timed(ba_cg.solve_sharded, msh)
         emit("5_large_ba_sharded", cgc.gn_iters / dt_s, "GN iters/s",
              wall_s=round(dt_s, 2), devices=len(set(msh.devices.flat)), shards=SHARDS,
@@ -213,40 +318,18 @@ def main(argv=None, results: dict | None = None) -> int:
         out["5_sharded"] = dict(result=res_s,
                                 run=lambda: ba_cg.solve_sharded(msh, *args5, cfg=cgc))
 
-        # multi-robot shared map (BASELINE config 5's second axis): R robots
-        # on the same 24-frame trajectory, one shared table of 400 landmarks
-        # perturbed by 60 mm
-        R = 2 if small else 8
-        mcfg = SlamConfig(max_frames=32, max_points=512, max_obs=16384, max_obs_per_point=32)
-        scene = synthetic.build_scene(mcfg, n_frames=24, n_points=400, seed=0,
-                                      pose_noise=0.005, device=dev)
-        s5 = scene.state
-        rng5 = np.random.default_rng(5)
-        locs = s5.point_loc.clone()
-        locs[:400, :3] += torch.as_tensor(
-            rng5.normal(scale=60.0, size=(400, 3)).astype(np.float32), device=dev)
-        free5, present5 = slam.window_masks(s5, 8, 24)
-        ok5 = slam._obs_ok(s5, s5.n_frames - 24)
-        pack = (s5.frame_quat, s5.frame_trans, s5.frame_cam, s5.obs_frame, s5.obs_point,
-                s5.obs_px, ok5, present5, free5)
-        st = [torch.stack([p] * R) for p in pack]
-        args_mr = (st[0], st[1], st[2], s5.cam_k, locs, s5.point_uncertainty,
-                   *st[3:])
-        sweeps = 3
-        mr_cfg = ba.BAConfig(max_iters=5, max_free_frames=8)
-
-        def point_err(loc):
-            pos = loc[:400, :3] / loc[:400, 3:]
-            return float(torch.linalg.norm(pos - scene.true_points[:, :3], dim=1).mean())
-
+        # multi-robot shared map (BASELINE config 5's second axis)
+        mr = multi_robot_problem(dev, small)
+        args_mr, mr_cfg, sweeps = mr["args"], mr["cfg"], mr["sweeps"]
         multi_robot.solve_shared_map(*args_mr, cfg=mr_cfg, sweeps=sweeps)
         sync()
         t0 = time.perf_counter()
         locs5 = multi_robot.solve_shared_map(*args_mr, cfg=mr_cfg, sweeps=sweeps)[2]
         sync()
         dt = time.perf_counter() - t0
+        point_err, locs = mr["point_err"], mr["locs"]
         emit("5_multi_robot_shared_map", sweeps / dt, "GS sweeps/s",
-             wall_s=round(dt, 2), robots=R, obs=R * int(s5.obs_frame.shape[0]),
+             wall_s=round(dt, 2), robots=mr["robots"], obs=mr["obs"],
              shared_landmarks=400, mean_point_err_mm=round(point_err(locs5), 2),
              mean_point_err0_mm=round(point_err(locs), 2))
         out["5_multi_robot"] = dict(

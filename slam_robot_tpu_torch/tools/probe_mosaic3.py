@@ -1,7 +1,7 @@
 """Window extraction by asynchronous copy, and the vector-to-scalar hand-off
 (the port of ``tools/probe_mosaic3.py``):
 
-  I: each lane's window copied by cp.async and waited for in turn
+  I: each lane's window copied asynchronously (the TMA) and waited for in turn
   J: every lane's copy started, then all waited for
   K: positions staged in shared memory first, then copied as I
   L: while loop with an all(done) condition, done per element, on (8, 128)

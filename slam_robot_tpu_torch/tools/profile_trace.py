@@ -44,6 +44,7 @@ no result line.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import dataclasses
 import functools
@@ -189,11 +190,41 @@ class SpanTimer:
 LEAD_S, TAIL_S = 1.0, 0.25
 
 
-def _traced(run, dev: torch.device, activities):
+# a marker launched into a capture, which its events can be split by: on
+# the card a kernel (torch.cuda._sleep's), on the CPU a span. The host's calls
+# are numbered in order (their correlation ids), so the calls made after a
+# marker have larger ids than its own, whatever the device's time stamps say
+MARK = "capture_mark"
+# markers launched back to back before a traced run; the run starts after
+# the last one the capture kept. A capture's first kernel was seen lost on
+# the card (profile_cg's padded solve lost its one start marker in three
+# takes running), and a lost marker before a kept one costs nothing
+LEAD_MARKS = 3
+
+
+def mark(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda._sleep(1)
+    else:
+        with torch.profiler.record_function(MARK):
+            pass
+
+
+def marks(events, dev: torch.device) -> list:
+    """The correlation ids of the capture's markers, in order."""
+    if dev.type == "cuda":
+        return sorted(e.correlation_id() for e in events if "spin_kernel" in e.name())
+    return sorted(e.correlation_id() for e in events if e.name() == MARK)
+
+
+def traced(run, dev: torch.device, activities):
     """The profiler after one traced ``run()``. The profiler warms up on a
     first, discarded step (a few small launches), and the run sits
     :data:`LEAD_S` after the traced window's start and :data:`TAIL_S`
-    before its end."""
+    before its end, :data:`LEAD_MARKS` markers (:func:`mark`) launched just
+    before it: the window may hold the host's record of a warm-up launch
+    whose kernel ran before it, or lose its first kernel, and
+    :func:`run_events` leaves out what precedes the last marker kept."""
     warm = torch.zeros(8, device=dev)
     with torch.profiler.profile(activities=activities,
                                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
@@ -203,11 +234,171 @@ def _traced(run, dev: torch.device, activities):
         profiling.sync(dev)
         prof.step()
         time.sleep(LEAD_S)
+        for _ in range(LEAD_MARKS):
+            mark(dev)
         run()
         profiling.sync(dev)
         time.sleep(TAIL_S)
         prof.step()
     return prof
+
+
+def run_events(prof, dev: torch.device) -> list | None:
+    """The events of :func:`traced`'s run: those after the last of its
+    lead markers that the capture kept (a later one that it lost is a lost
+    launch of the run); None when it kept none."""
+    events = capture_events(prof)
+    found = marks(events, dev)
+    if not found:
+        return None
+    return [e for e in events if e.correlation_id() > found[-1]]
+
+
+def run_audit(prof, dev: torch.device) -> dict:
+    """The :func:`audit` of :func:`traced`'s run (:func:`run_events`). A
+    capture that lost every lead marker's kernel has lost kernels too: its
+    audit is the whole capture's, with ``lost_markers``."""
+    events = run_events(prof, dev)
+    if events is None:
+        return dict(audit(capture_events(prof)), lost_markers=LEAD_MARKS)
+    return audit(events)
+
+
+def capture_events(prof) -> list:
+    """The events of the capture that ``prof`` (a ``torch.profiler.profile``
+    after its active step) holds, as Kineto gives them: without building
+    the operator events that ``key_averages()`` builds (minutes for a
+    capture of 10^5 launches)."""
+    return prof.profiler.kineto_results.events()
+
+
+def _is_device(e) -> bool:
+    """A capture event that is the device's work (a kernel, copy or set;
+    not the device-side copy of a ``record_function`` span)."""
+    return e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()
+
+
+def audit(events) -> dict:
+    """``trace_detail.read``'s audit of a capture read back in process
+    (ROADMAP C6): the host's kernel launches (``cudaLaunchKernel``,
+    ``cuLaunchKernel`` and the like) that have no kernel with their correlation id
+    (``lost_launches``; ``lost_at``, the first five's places in launch
+    order), against the launches and kernels the capture holds. A kernel
+    that a CUDA graph launched has no such launch (``unlaunched_kernels``),
+    and is not lost."""
+    launches, kernels = set(), set()
+    for e in events:
+        if _is_device(e):
+            if not e.name().startswith(("Memcpy", "Memset")):
+                kernels.add(e.correlation_id())
+        elif "LaunchKernel" in e.name():
+            launches.add(e.correlation_id())
+    order = sorted(launches)
+    lost = [i for i, corr in enumerate(order) if corr not in kernels]
+    return {"kernel_launches": len(launches), "kernels": len(kernels),
+            "lost_launches": len(lost), "unlaunched_kernels": len(kernels - launches),
+            "lost_at": lost[:5]}
+
+
+def audit_fault(a: dict) -> str | None:
+    """What is wrong with a capture by its :func:`audit`, or None: a launch
+    whose kernel the capture lost, a capture whose markers (:func:`mark`)
+    no longer tell its run apart (``lost_markers``: kernels lost), or
+    kernels and no launch to hold them against (an audit that cannot see
+    the launches proves nothing)."""
+    if a.get("lost_markers"):
+        return (f"{a['lost_markers']} kernels lost where the markers must tell the run apart, "
+                f"so its bounds are unknown")
+    if a["lost_launches"]:
+        return f"{a['lost_launches']} of {a['kernel_launches']} kernel launches lost their kernel"
+    if a["kernels"] and not a["kernel_launches"]:
+        return f"{a['kernels']} kernels and no launch in the capture"
+    return None
+
+
+# a capture that lost a kernel (ROADMAP C6) is taken again, CAPTURE_TRIES
+# times in all at most; a caller's gate fails on a loss the last one still has
+CAPTURE_TRIES = 3
+
+
+def retaken(take, fault) -> tuple:
+    """``take()``, taken again while ``fault(result)`` names a fault, at most
+    CAPTURE_TRIES times in all: (the last result, the retakes made)."""
+    for retakes in range(CAPTURE_TRIES):
+        got = take()
+        if fault(got) is None:
+            break
+    return got, retakes
+
+
+def busy_share_session(works: dict, dev: torch.device) -> dict:
+    """The busy share of each of ``works`` ({name: run}) from one traced
+    session (:func:`traced`; on the card device activity only) that runs
+    them in turn, a marker (:func:`mark`) before each and after the last, then
+    each once on the host's clock. A work's events are those whose
+    correlation id (the order of the host's calls) falls between its two
+    markers. By name: device busy ms (kernels, copies and sets; spans left
+    out), device operations, the busy share of its unprofiled wall time,
+    kernel launches and its events' :func:`audit`. The traced pass comes
+    first, as in :func:`profile`, so that a fresh process pays its first
+    launches there. On the CPU the "device" work is the operators', nested
+    ones counted in each enclosing one: a figure for the tests, not a busy
+    share. A line whose capture lost a kernel is taken again in a session of
+    its own (:func:`retaken`; ``retakes``)."""
+    out = _busy_session(works, dev)
+    for name, run in works.items():
+        if audit_fault(out[name]["audit"]) is not None:
+            out[name], retakes = retaken(lambda: _busy_session({name: run}, dev)[name],
+                                         lambda f: audit_fault(f["audit"]))
+            out[name]["retakes"] = retakes + 1
+    return out
+
+
+def _busy_session(works: dict, dev: torch.device) -> dict:
+    """:func:`busy_share_session`'s figures from one traced session."""
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
+
+    def all_works():  # the last of traced's lead markers opens the first work
+        for run in works.values():
+            run()
+            mark(dev)
+
+    events = capture_events(traced(all_works, dev, acts))
+    found = marks(events, dev)
+    n = len(works)
+    # the last n markers close the works and the one before them opens the
+    # first. A lost marker after that start would shift the split and is a
+    # lost launch there: then, as when too few markers are left, no work's
+    # bounds are known, and every work's capture is faulty (audit_fault)
+    lost_markers = max(0, n + 1 - len(found))
+    bounds = found[-n - 1:]
+    if not lost_markers:
+        lost_markers = audit([e for e in events
+                              if e.correlation_id() > bounds[0]])["lost_launches"]
+    parts = [[] for _ in works]
+    for e in events if not lost_markers else ():
+        k = bisect.bisect_left(bounds, e.correlation_id()) - 1
+        if 0 <= k < len(works) and e.correlation_id() != bounds[k + 1]:
+            parts[k].append(e)
+    out = {}
+    for name, run, evs in zip(works, works.values(), parts):
+        if dev.type == "cuda":
+            work = [e for e in evs if _is_device(e)]
+        else:
+            work = [e for e in evs if not e.is_user_annotation()]
+        busy_ms = sum(e.duration_ns() for e in work) / 1e6
+        profiling.sync(dev)
+        t0 = time.perf_counter()
+        run()
+        profiling.sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        a = audit(evs)
+        if lost_markers:
+            a["lost_markers"] = lost_markers
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_ops": len(work),
+                     "busy_share": busy_ms / wall_ms, "kernel_launches": a["kernel_launches"],
+                     "audit": a, "retakes": 0}
+    return out
 
 
 def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
@@ -218,7 +409,9 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
     frames or iterations in one ``run``): wall ms, device ms, busy share,
     device ms by category, the ``top`` device rows, host ms by span, the
     launches of B1 and B2 in the trace and by the port's counters, the
-    profiled pass's wall ms, and every device row's count (``counts``).
+    profiled pass's wall ms, every device row's count (``counts``), the
+    capture's :func:`audit` and its ``retakes`` (:func:`retaken`: a capture
+    that lost a kernel is taken again).
 
     The traced pass comes first: in a fresh process it pays for the first
     launches (each kernel loads on its first one), which would slow an
@@ -233,14 +426,20 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
     ``trace_detail``: on the CPU the profiled pass's; on the card one more
     pass, of ``detail()`` (``detail_units`` units; default ``run``), traced
     with the host's operators, launches and spans beside the device's work,
-    and exported without reading it back (``trace_units``, and the port's
-    counters over that pass as ``trace_counted_launches``)."""
+    and exported after its :func:`audit` (``trace_units``, ``trace_retakes``,
+    and the port's counters over that pass as ``trace_counted_launches``)."""
     acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
-    before = bench.counts()
-    t0 = time.perf_counter()
-    prof = _traced(run, dev, acts)
-    profiled_ms = 1e3 * (time.perf_counter() - t0 - LEAD_S - TAIL_S)
-    counters = {k: v - before[k] for k, v in bench.counts().items()}
+
+    def take():
+        before = bench.counts()
+        t0 = time.perf_counter()
+        prof = traced(run, dev, acts)
+        profiled_ms = 1e3 * (time.perf_counter() - t0 - LEAD_S - TAIL_S)
+        counters = {k: v - before[k] for k, v in bench.counts().items()}
+        return prof, profiled_ms, counters, run_audit(prof, dev)
+
+    (prof, profiled_ms, counters, captured), retakes = retaken(
+        take, lambda got: audit_fault(got[3]))
     with SpanTimer() as spans:
         t0 = time.perf_counter()
         run()
@@ -251,9 +450,9 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
     averages = prof.key_averages()
     rows = device_rows(averages, dev)
     total_us, cats = split(rows)
-    traced = collections.Counter()
+    in_trace = collections.Counter()
     for name, count, _ in rows:
-        traced[category(name)] += count
+        in_trace[category(name)] += count
     rows.sort(key=lambda r: -r[2])
     out = {
         "units": n_units, "wall_ms": wall_ms / n_units, "profiled_wall_ms": profiled_ms / n_units,
@@ -267,9 +466,10 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
                                if not name.startswith(("Memcpy", "Memset"))),
         "host_ms_by_span": {k: v / n_units for k, v in sorted(spans.ms.items())},
         "span_calls": dict(spans.calls),
-        "traced_launches": {k: traced[k] for k in ("newton_track", "pyramid_flat")},
+        "traced_launches": {k: in_trace[k] for k in ("newton_track", "pyramid_flat")},
         "counted_launches": {k: counters[k] for k in ("newton_track", "pyramid_flat")},
         "syncs": counters["syncs"] / n_units,
+        "audit": captured, "retakes": retakes,
     }
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)
@@ -278,9 +478,14 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
         with open(os.path.join(out_dir, "profile_device.txt"), "w") as f:
             f.write(averages.table(sort_by=sort, row_limit=60))
         if dev.type == "cuda":
-            before = bench.counts()
-            prof = _traced(detail or run, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            counted = {k: v - before[k] for k, v in bench.counts().items()}
+            def take_detail():
+                before = bench.counts()
+                prof = traced(detail or run, dev, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                counted = {k: v - before[k] for k, v in bench.counts().items()}
+                return prof, counted, run_audit(prof, dev)
+
+            (prof, counted, _), out["trace_retakes"] = retaken(
+                take_detail, lambda got: audit_fault(got[2]))
             out["trace_units"] = detail_units or n_units
         else:
             counted, out["trace_units"] = counters, n_units
@@ -373,27 +578,33 @@ def trace_scan(ps, imgs: torch.Tensor, cfg: SlamConfig, dev: torch.device,
 # an exported one; a fresh process lost none. A job holds what a
 # long-running caller profiles, for a fresh process to run: the scan's trace
 # (trace_scan, no first pass), then trace_detail's reading of the export, in
-# a process of its own beside the config-5 tools of ``cg`` (profile_cg in
-# each layout, then profile_cg_sharded)
+# a process of its own beside the busy shares of ``busy``
+# (bench_suite.busy_works) and the config-5 tools of ``cg`` (profile_cg in each layout, then
+# profile_cg_sharded)
 JOB_FILE, RESULT_FILE, STATE_FILE, FRAMES_FILE = "job.json", "result.json", "state.pt", "frames.pt"
 DETAIL_FILE = "detail.json"
 # seconds the job waits for trace_detail after its last solve
 DETAIL_TIMEOUT_S = 300
 _ROOT = Path(__file__).resolve().parents[2]
 
-
 def write_job(job_dir: str, ps, imgs: torch.Tensor, cfg: SlamConfig, top: int,
-              cg: dict | None = None) -> None:
+              cg: dict | None = None, busy: dict | None = None) -> None:
     """The job of :func:`run_job` in ``job_dir``: the state ``ps`` (a
     ``utils/checkpoint`` file), the frames ``imgs``, the config and the
     options, ``cg`` those of the config-5 tools ({"layouts", "gn_iters",
     "cg_iters", "top", "small"} of ``profile_cg``, and "shards" of
-    ``profile_cg_sharded``, none when empty; None: no solve)."""
+    ``profile_cg_sharded``, none when empty; None: no solve), ``busy`` those
+    of the busy shares ({"small", "steps", "fleet_goals"} of
+    ``bench_suite.busy_works``; None: none; they need ``cg`` with the padded
+    layout, whose solve is config 5's line)."""
     os.makedirs(job_dir, exist_ok=True)
     checkpoint.save(ps, os.path.join(job_dir, STATE_FILE))
     torch.save(imgs.cpu(), os.path.join(job_dir, FRAMES_FILE))
+    job = {"cfg": dataclasses.asdict(cfg), "top": top, "cg": cg}
+    if busy is not None:
+        job["busy"] = busy
     with open(os.path.join(job_dir, JOB_FILE), "w") as f:
-        json.dump({"cfg": dataclasses.asdict(cfg), "top": top, "cg": cg}, f)
+        json.dump(job, f)
 
 
 def read_job(job_dir: str, dev: torch.device) -> tuple:
@@ -408,16 +619,27 @@ def read_job(job_dir: str, dev: torch.device) -> tuple:
     return ps, imgs, cfg, job
 
 
+def cg_busy(figures: dict) -> dict:
+    """Config 5's busy line from ``profile_cg``'s figures (a solve's)."""
+    n = figures["units"]
+    return {"wall_ms": figures["wall_ms"] * n, "device_busy_ms": figures["device_ms"] * n,
+            "device_ops": figures["device_ops"], "busy_share": figures["busy_share"],
+            "kernel_launches": figures["audit"]["kernel_launches"], "audit": figures["audit"],
+            "retakes": figures["retakes"], "from": "profile_cg padded"}
+
+
 def do_job(job_dir: str, dev: torch.device) -> dict:
     """The job in ``job_dir`` in this process; writes and returns its result:
-    each tool's figures, printed lines and seconds, trace_detail's JSON, and
-    the port's counters over the job (``launches``)."""
+    each tool's figures, printed lines and seconds, trace_detail's JSON, the
+    busy shares (``busy``, by line) and the port's counters over the job
+    (``launches``)."""
     from slam_robot_tpu_torch.ops import ba_cg
-    from slam_robot_tpu_torch.tools import profile_cg
+    from slam_robot_tpu_torch.tools import bench_suite, profile_cg
 
     ps, imgs, cfg, job = read_job(job_dir, dev)
     before = bench.counts()
     tools = {}
+    busy_opts = job.get("busy")
 
     def tool(name, fn):
         lines, t0 = [], time.perf_counter()
@@ -432,16 +654,24 @@ def do_job(job_dir: str, dev: torch.device) -> dict:
                                    "--trace", trace, "--json"], stdout=f, cwd=_ROOT)
     try:
         cg = job["cg"]
+        big = profile_cg.problem(cg["small"], dev) if cg is not None else None
+        # the busy shares in one session, then the config-5 tools
+        if busy_opts is not None:
+            t0 = time.perf_counter()
+            busy = busy_share_session(bench_suite.busy_works(
+                dev, busy_opts["small"], busy_opts["steps"], busy_opts["fleet_goals"], big), dev)
+            busy_s = time.perf_counter() - t0
         if cg is not None:
-            big = profile_cg.problem(cg["small"], dev)
             for layout in cg["layouts"]:
                 cgc = ba_cg.CGConfig(max_free_frames=big[0].shape[0], gn_iters=cg["gn_iters"],
                                      cg_iters=cg["cg_iters"], precond="diag", layout=layout)
                 tool(f"profile_cg {layout}", lambda emit: profile_cg.run(
                     big, cgc, dev, cg["top"], out_dir=None, emit=emit))
-            if cg["shards"]:
-                tool("profile_cg_sharded", lambda emit: _sharded(
-                    dev, cg, big, tools.get("profile_cg padded"), emit))
+        if busy_opts is not None:
+            busy["5"] = cg_busy(tools["profile_cg padded"]["figures"])
+        if cg is not None and cg["shards"]:
+            tool("profile_cg_sharded", lambda emit: _sharded(
+                dev, cg, big, tools.get("profile_cg padded"), emit))
         rc = reader.wait(timeout=DETAIL_TIMEOUT_S)
     finally:
         if reader.poll() is None:
@@ -454,6 +684,8 @@ def do_job(job_dir: str, dev: torch.device) -> dict:
     after = bench.counts()
     result = {"tools": tools, "detail": detail,
               "launches": {k: v - before[k] for k, v in after.items()}}
+    if busy_opts is not None:
+        result["busy"], result["busy_s"] = busy, busy_s
     with open(os.path.join(job_dir, RESULT_FILE), "w") as f:
         json.dump(result, f)
     return result

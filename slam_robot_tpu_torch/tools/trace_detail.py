@@ -84,7 +84,10 @@ def read(path: str) -> tuple[list, dict]:
     span that encloses it on the card's timeline.
 
     ``audit``: the host's kernel launches that have no kernel in the trace
-    (``lost_launches``, with the spans they were made in), kernels with no
+    (``lost_launches``, with the spans they were made in; launches before
+    the last of ``profile_trace.traced``'s lead markers that the trace
+    kept, where it has one, are the warm-up step's or a marker's and left
+    out), kernels with no
     launch (``unlaunched_kernels``), and the least time from a launch to the
     start of its kernel (``min_launch_to_kernel_us``; a kernel cannot start
     before its launch, so a negative value means the device's time stamps
@@ -150,8 +153,12 @@ def read(path: str) -> tuple[list, dict]:
         r["occ"] += 1
         r["us"] += e.get("dur", 0)
         r["spans"][inner] += 1
+    # the run starts after the last of profile_trace.traced's lead marker
+    # kernels that the trace kept; a launch before it is the warm-up step's
+    # (whose kernel ran before the window) or a lead marker's
+    start = max((corr for e, corr, _ in done if "spin_kernel" in e["name"]), default=None)
     lost = collections.Counter(span for corr, (span, _) in kernel_launches.items()
-                               if corr not in kernel_corrs)
+                               if corr not in kernel_corrs and (start is None or corr > start))
     audit = {"kernel_launches": len(kernel_launches), "lost_launches": sum(lost.values()),
              "lost_launch_spans": dict(lost),
              "unlaunched_kernels": len(kernel_corrs - set(kernel_launches)),

@@ -487,6 +487,81 @@ def test_probe_layout_at_other_shapes_eager_and_replayed_on_card(cuda_device, ca
     assert torch.equal(eager, replayed)
 
 
+# every level of a 480x640 pyramid, an odd shape, and the least sides sep5
+# takes (3: one reflection reaches every index)
+SEP5_SHAPES = [(480, 640), (240, 320), (120, 160), (60, 80), (30, 40), (15, 20), (47, 63),
+               (3, 3), (3, 17), (17, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SEP5_SHAPES)
+@pytest.mark.parametrize("stride", [1, 2])
+def test_blur_sep5_at_the_pyramid_shapes_eager_and_replayed_on_card(cuda_device, shape, stride):
+    """B2's sep5 (blur at stride 1 with build_pyramid's sigmas, pyrDown's
+    taps at stride 2) against its plain version, atol 1e-5, and a replayed
+    CUDA graph equal to the eager call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[0] * 1000 + shape[1])
+    x = torch.rand(shape, generator=gen, device=cuda_device)
+    weights = ([t_blur.gaussian_weights(1.1), t_blur.gaussian_weights(0.8)] if stride == 1
+               else [t_blur.PYRDOWN_WEIGHTS])
+    for w in weights:
+        eager, replayed = _eager_and_replayed(lambda: t_blur.sep5(x, w, stride))
+        want = t_blur.sep5_plain(x, w, stride)
+        assert eager.shape == want.shape
+        assert float((eager - want).abs().max()) <= 1e-5
+        assert torch.equal(eager, replayed)
+
+
+def _edge_positions(h: int, w: int, size: int, f: int, seed: int) -> torch.Tensor:
+    """f int32 (x, y) positions: past every edge and corner, on the last
+    start that fits, and random ones around the image."""
+    edges = [[-5, -7], [w + 9, -3], [-9, h + 2], [w + 40, h + 40], [0, 0],
+             [w - size, h - size], [-1, (h - size) // 2], [(w - size) // 2, h - size + 1]]
+    rng = np.random.default_rng(seed)
+    rand = rng.integers(-size, max(h, w) + size, (max(f - len(edges), 0), 2)).tolist()
+    return torch.tensor((edges + rand)[:f], dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [pw.ONE_BY_ONE, pw.ALL_THEN_WAIT, pw.STAGED])
+def test_windows_async_routes_eager_and_replayed_on_card(cuda_device, case):
+    """T8-T10's async window copy exactly equal to the plain windows: at the
+    probes' shape (the copy engine's bulk copies), with positions clamped at
+    every edge, and at windows 16 and 30 wide (odd spans); at an image 70
+    wide (a row pitch off 16 bytes) and at one 4 bytes off 16-byte
+    alignment (cp.async); at the most lanes that ALL_THEN_WAIT's shared
+    memory allows (50 slots of 32 rows at a pitch of 36 floats, 4608 B, a
+    block; 51 pass the card's 227 KB); each eager and replayed from a CUDA
+    graph."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7 + case)
+    probe = torch.rand((128, 256), generator=gen, device=cuda_device)
+    buf = torch.rand((128 * 256 + 1,), generator=gen, device=cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    most = 50 * sms
+    runs = [(probe, 32, 8, pw.BULK), (probe, 16, 40, pw.BULK), (probe, 30, 24, pw.BULK),
+            (torch.rand((64, 70), generator=gen, device=cuda_device), 16, 12, pw.CP_ASYNC),
+            (buf[1:].view(128, 256), 32, 8, pw.CP_ASYNC),
+            (probe, 32, most, pw.BULK)]
+    for img, size, f, route in runs:
+        assert pw.async_route(img) == route
+        pos = _edge_positions(*img.shape, size, f, seed=f).to(cuda_device)
+        before = pw.WINDOWS_ASYNC.launches
+        eager, replayed = _eager_and_replayed(lambda: pw.windows_async(img, pos, size, case))
+        assert pw.WINDOWS_ASYNC.launches == before + 2
+        want = pw.windows_plain(img, pos, size, pw.INT)
+        assert torch.equal(eager, want), (tuple(img.shape), size, f, route)
+        assert torch.equal(replayed, want)
+    too_many = torch.zeros((most + 1, 2), dtype=torch.int32, device=cuda_device)
+    before = pw.WINDOWS_ASYNC.launches
+    if case == pw.ALL_THEN_WAIT:  # 51 slots a block
+        with pytest.raises(RuntimeError, match="cudaError 1$"):
+            pw.windows_async(probe, too_many, 32, case)
+        assert pw.WINDOWS_ASYNC.launches == before
+    else:  # one slot a block
+        assert torch.equal(pw.windows_async(probe, too_many, 32, case),
+                           pw.windows_plain(probe, too_many, 32, pw.INT))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stage", list(pn.STAGES))
 def test_probe_newton_kernel_on_smooth_windows(cuda_device, stage):

@@ -8,8 +8,12 @@ suite: ``chip_smoke.py`` replays all four on the card (phase 9).
 """
 
 import json
+import time
 
+import pytest
 import torch
+
+import chip_smoke
 
 from slam_robot_tpu_torch.tools import parity as t_parity
 from tools import parity as j_parity
@@ -38,3 +42,30 @@ def test_forward_yaw_replays_inside_every_gate(tmp_path):
     assert rep["median_ok"], (f"median {rep['median_enabled_err_px']} px > golden "
                               f"{rep['golden_median_px']} + 0.1")
     assert rep["ok"] and report["ok"] and rc == 0
+
+
+def test_the_smoke_s_parity_processes_fail_without_a_report(tmp_path):
+    """chip_smoke.py's phase 9 runs each sequence in a process of its own:
+    one that exits with no report fails the phase with its log's end (here
+    an unknown sequence)."""
+    with pytest.raises(AssertionError, match="no_such_sequence: the replay exited 1 with no "
+                                             "report(.|\\n)*KeyError"):
+        chip_smoke._parity_reports(["no_such_sequence"], tmp_path, 120)
+
+
+def test_the_smoke_s_parity_processes_are_ended_at_their_time_limit(tmp_path, monkeypatch):
+    """A parity process that runs past the phase's limit fails it, and the
+    phase ends every process it started."""
+    started = []
+    popen = chip_smoke.subprocess.Popen
+
+    def record(*args, **kwargs):
+        started.append(popen(*args, **kwargs))
+        return started[-1]
+
+    monkeypatch.setattr(chip_smoke.subprocess, "Popen", record)
+    t0 = time.time()
+    with pytest.raises(AssertionError, match="forward_yaw: the replay ran past 0.5 s"):
+        chip_smoke._parity_reports(["forward_yaw", "long_forward"], tmp_path, 0.5)
+    assert time.time() - t0 < 30
+    assert len(started) == 2 and all(p.poll() is not None for p in started)
