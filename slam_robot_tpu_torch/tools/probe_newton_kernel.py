@@ -15,6 +15,7 @@ import sys
 import numpy as np
 import torch
 
+from slam_robot_tpu_torch.ops import patch
 from slam_robot_tpu_torch.ops.cuda import probe_newton as pn
 from slam_robot_tpu_torch.tools import Case, main_for, tap_bytes
 
@@ -33,6 +34,23 @@ def inputs(device, seed: int = 0):
     ref = rng.uniform(size=(F, S, S)).astype(np.float32)
     pos = np.full((F, 2), START, np.float32)
     wmask = np.ones((S, S), np.float32)
+    return tuple(torch.as_tensor(a, device=device) for a in (win, pos, ref, wmask))
+
+
+def edge_inputs(device, seed: int = 0, f: int = F, wh: int = WS, ww: int = WS):
+    """Seeded inputs whose lanes spread over the window and past its edges:
+    uniform windows [f, wh, ww] and references, each lane at a floor from -6
+    to the window's edge less 7 on each axis plus a uniform fraction (an edge
+    lane's taps outside the window read 0; at least 7 of its patch's rows
+    and columns stay inside, so its gain stays defined), and the tracker's
+    radial weights (not all 1)."""
+    rng = np.random.default_rng(seed)
+    win = rng.uniform(size=(f, wh, ww)).astype(np.float32)
+    ref = rng.uniform(size=(f, S, S)).astype(np.float32)
+    x = rng.integers(-6, ww - 6, f) + rng.uniform(size=f)
+    y = rng.integers(-6, wh - 6, f) + rng.uniform(size=f)
+    pos = np.stack([x, y], -1).astype(np.float32)
+    wmask = patch.radial_mask(S).numpy()
     return tuple(torch.as_tensor(a, device=device) for a in (win, pos, ref, wmask))
 
 

@@ -46,6 +46,7 @@ from slam_robot_tpu_torch.ops.cuda import probe_control as pc
 from slam_robot_tpu_torch.ops.cuda import probe_newton as pn
 from slam_robot_tpu_torch.ops.cuda import probe_pyramid as pp
 from slam_robot_tpu_torch.ops.cuda import probe_windows as pw
+from slam_robot_tpu_torch.tools import probe_newton_kernel as t_nk
 
 F = 37
 
@@ -574,6 +575,38 @@ def test_probe_newton_kernel_on_smooth_windows(cuda_device, stage):
     want = pn.probe_newton_plain(win, pos, ref, wmask, pn.STAGES[stage])
     atol = 2e-3 if stage == "newton" else 1e-3
     assert float((got - want).abs().max()) <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 5, 257])
+@pytest.mark.parametrize("wh,ww", [(32, 32), (17, 23)])
+@pytest.mark.parametrize("stage", list(pn.STAGES))
+def test_probe_newton_at_the_window_edges_on_card(cuda_device, f, wh, ww, stage):
+    """T14/T15 against the plain version with lanes past the window's edges
+    (``edge_inputs``: their taps outside the window read 0) and radial
+    weights, on partial and odd grids, at a 32x32 window (rows on 16 bytes:
+    16-byte copies) and at 17x23 (rows off 16 bytes: 4-byte copies), the
+    loops at 0, 1 and 6 iterations; one launch a call, two calls on the same
+    inputs bitwise equal, and a window whose base is 4 bytes off 16 (4-byte
+    copies) giving the same bits as the one on a fresh allocation."""
+    win, pos, ref, wmask = t_nk.edge_inputs(cuda_device, f + wh, f, wh, ww)
+    buf = torch.empty(win.numel() + 1, device=cuda_device)
+    off = buf[1:].view(win.shape)
+    off.copy_(win)
+    assert win.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 4
+    st = pn.STAGES[stage]
+    atol = 2e-3 if st == pn.NEWTON else 1e-3
+    for iters in ((0, 1, 6) if st in (pn.FORI_GRAD, pn.NEWTON) else (6,)):
+        before = pn.KERNEL.launches
+        got = pn.probe_newton(win, pos, ref, wmask, st, iters)
+        again = pn.probe_newton(win, pos, ref, wmask, st, iters)
+        moved = pn.probe_newton(off, pos, ref, wmask, st, iters)
+        assert pn.KERNEL.launches == before + 3
+        want = pn.probe_newton_plain(win, pos, ref, wmask, st, iters)
+        assert torch.equal(got, again) and torch.equal(got, moved), iters
+        assert float((got - want).abs().max()) <= atol, iters
+        if iters == 0:
+            assert torch.equal(got, pos)
 
 
 @pytest.mark.cuda
