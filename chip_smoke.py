@@ -164,9 +164,9 @@ Phases, one line each (phases 2 and 3 several):
      launches a stage), profile_tracker (events and graph replay),
      probe_live (rtt and every ported variant over 2 frames, each final
      state equal to eager's bit for bit), profile_scan (default and noslam,
-     one pass of 8 frames); then, in one fresh process (profile_trace
-     --job: a long-lived process loses kernels from its traces, ROADMAP
-     C6), profile_trace over 2 frames (its traced pass first, which pays
+     one pass of 8 frames); then, in a fresh process (profile_trace
+     --job --part trace: a long-lived process loses kernels from its
+     traces, ROADMAP C6), profile_trace over 2 frames (its traced pass first, which pays
      for the process's first launches; device busy share, categories, top
      kernels, host ms by span) and trace_detail on its export (2 frames
      with the host's spans; python -m, beside the next two: B1's and B2's
@@ -174,10 +174,13 @@ Phases, one line each (phases 2 and 3 several):
      kernel), the busy shares of phase 8's fleet (30 steps) and of phase
      11's suite lines (config 1's steps, a config-2 solve, 30 steps of
      config 4's fleet, config 5's solve from profile_cg's padded one, the
-     four-shard solve, a sweep of the multi-robot map), profile_cg at
+     four-shard solve, a sweep of the multi-robot map), and once that
+     process has ended, in a second fresh one (--part cg), profile_cg at
      config 5 in both layouts, and profile_cg_sharded (1, 2, 4 and 8 shards
      against one, phase 11's tolerances, and the projection from the padded
-     solve's rate); fails on a non-finite number, a busy share over 100 %
+     solve's rate); every capture's record printed (its process, session,
+     tool, the launches before it, whether trace_detail ran, lost_at);
+     fails on a non-finite number, a busy share over 100 %
      (by more than the profiler's time stamps, 200 ns a device operation),
      any capture with a kernel launch whose kernel it lost (ROADMAP C6;
      the export's by trace_detail's audit, every other capture's by
@@ -2882,7 +2885,7 @@ def phase_bench(start, card: str):
 # (the script's time limit): frames probe_live runs a variant,
 # profile_scan times, profile_trace traces
 LIVE_FRAMES, SCAN_FRAMES, TRACE_FRAMES = 2, 8, 2
-# seconds phase 14's fresh process (profile_trace --job) may take
+# seconds phase 14's fresh processes (profile_trace --job) may take together
 JOB_TIMEOUT_S = 600
 
 
@@ -3033,12 +3036,19 @@ def phase_profilers(warm, card: str):
                                   "fleet_goals": FLEET_GOALS})
     t_job = time.perf_counter()
     job = profile_trace.run_job(job_dir, dev, JOB_TIMEOUT_S)
-    times["fresh process"] = time.perf_counter() - t_job
+    times["fresh processes"] = time.perf_counter() - t_job
+    # every capture of the two processes, in order (ROADMAP C6): the
+    # process, its session's index there, the tool, the seconds and the
+    # kernel launches of the process before it, whether trace_detail's
+    # reader ran, and the capture's launches and lost_at
+    for c in job["captures"]:
+        print(f"phase 14 capture: {json.dumps(c)}", flush=True)
     retakes = {k: r["figures"]["retakes"] for k, r in job["tools"].items()
                if "retakes" in r["figures"]}
     retakes["export"] = job["tools"]["profile_trace"]["figures"]["trace_retakes"]
     retakes.update({f"busy {k}": f["retakes"] for k, f in job["busy"].items()})
-    print(f"phase 14 fresh process: {times['fresh process']:.1f} s; tools "
+    print(f"phase 14 fresh processes: {times['fresh processes']:.1f} s (by part "
+          f"{json.dumps({k: round(v, 1) for k, v in job['processes'].items()})}); tools "
           f"{json.dumps({k: round(r['s'], 1) for k, r in job['tools'].items()})}; busy shares "
           f"{job['busy_s']:.1f} s; captures taken again (a lost kernel) {json.dumps(retakes)}",
           flush=True)

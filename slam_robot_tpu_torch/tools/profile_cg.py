@@ -64,6 +64,7 @@ def run(args: tuple, cgc: ba_cg.CGConfig, dev: torch.device, top: int = 30,
     emit(f"first solve: {first_s:.0f}s")
     emit(f"solve: {dt:.2f}s = {rate:.2f} GN iters/s (cost {float(res.cost):.1f}, "
          f"layout {cgc.layout})")
+    profile_trace.CAPTURES.before_next(2)  # solve_rate's two solves
     p = profile_trace.profile(lambda: ba_cg.solve(*args, cgc), dev, cgc.gn_iters, out_dir, top,
                               wall_before_ms=1e3 * dt)
     profile_trace.report(p, "GN iter", emit)

@@ -32,10 +32,11 @@ operator events, and the profiled pass is the one exported.
 A process that has run for minutes loses kernels from its traces (ROADMAP
 C6), so a long-running caller hands its profiled passes to a fresh process
 as a job: :func:`write_job` writes the state, the frames and what to run
-into a directory, and :func:`run_job` runs ``--job DIR`` and waits for it.
+into a directory, and :func:`run_job` runs its parts (``--job DIR --part
+P``), each in a fresh process of its own, one after the other.
 
     python -m slam_robot_tpu_torch.tools.profile_trace [--refresh-state] [--top 40] [--frames 64]
-    python -m slam_robot_tpu_torch.tools.profile_trace --job DIR [--device cuda]
+    python -m slam_robot_tpu_torch.tools.profile_trace --job DIR [--part trace|cg] [--device cuda]
 
 Without a CUDA device (and without ``--device cpu``) it exits 1 and prints
 no result line.
@@ -202,6 +203,58 @@ MARK = "capture_mark"
 LEAD_MARKS = 3
 
 
+class CaptureLog:
+    """Every capture this process made, in order (ROADMAP C6: what precedes
+    a capture that loses kernels): per profiler session, its tool, its index
+    among the process's sessions, the process's seconds and the kernel
+    launches it had made before it, whether trace_detail's reader was still
+    running, and the capture's launches and audit ``lost_at`` once audited
+    (None until then). The launches are those the captures counted: each
+    traced run's, and each unprofiled run of the same work (:meth:`ran`),
+    which makes as many; the small launches of setting up a tool are not
+    counted."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.records, self.launched, self.unseen_runs = [], 0, 0
+        self.tool, self.reader = None, None
+
+    def open(self) -> None:
+        """The record of a session that starts now."""
+        rec = {"tool": self.tool, "session": len(self.records),
+               "s": round(time.perf_counter() - self.t0, 3), "launches_before": self.launched,
+               "reader_running": self.reader is not None and self.reader.poll() is None,
+               "launches": None, "lost_at": None}
+        self.records.append(rec)
+
+    def close(self, a: dict) -> None:
+        """The last session's capture audited (``a``, :func:`audit`): its
+        launches counted, and the runs of the same work made unprofiled just
+        before it (:meth:`before_next`) counted before it. Nothing when no
+        session is open."""
+        if not self.records or self.records[-1]["launches"] is not None:
+            return
+        rec = self.records[-1]
+        rec["launches"], rec["lost_at"] = a["kernel_launches"], a["lost_at"]
+        if a.get("lost_markers"):
+            rec["lost_markers"] = a["lost_markers"]
+        earlier = self.unseen_runs * a["kernel_launches"]
+        rec["launches_before"] += earlier
+        self.launched += earlier + a["kernel_launches"]
+        self.unseen_runs = 0
+
+    def before_next(self, runs: int) -> None:
+        """``runs`` unprofiled runs of the next capture's work were just made."""
+        self.unseen_runs += runs
+
+    def ran(self, launches: int) -> None:
+        """An unprofiled run of ``launches`` kernel launches was just made."""
+        self.launched += launches
+
+
+CAPTURES = CaptureLog()
+
+
 def mark(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda._sleep(1)
@@ -225,6 +278,7 @@ def traced(run, dev: torch.device, activities):
     before it: the window may hold the host's record of a warm-up launch
     whose kernel ran before it, or lose its first kernel, and
     :func:`run_events` leaves out what precedes the last marker kept."""
+    CAPTURES.open()
     warm = torch.zeros(8, device=dev)
     with torch.profiler.profile(activities=activities,
                                 schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
@@ -260,8 +314,11 @@ def run_audit(prof, dev: torch.device) -> dict:
     audit is the whole capture's, with ``lost_markers``."""
     events = run_events(prof, dev)
     if events is None:
-        return dict(audit(capture_events(prof)), lost_markers=LEAD_MARKS)
-    return audit(events)
+        a = dict(audit(capture_events(prof)), lost_markers=LEAD_MARKS)
+    else:
+        a = audit(events)
+    CAPTURES.close(a)
+    return a
 
 
 def capture_events(prof) -> list:
@@ -372,9 +429,11 @@ def _busy_session(works: dict, dev: torch.device) -> dict:
     # bounds are known, and every work's capture is faulty (audit_fault)
     lost_markers = max(0, n + 1 - len(found))
     bounds = found[-n - 1:]
+    whole = audit(events if lost_markers else
+                  [e for e in events if e.correlation_id() > bounds[0]])
     if not lost_markers:
-        lost_markers = audit([e for e in events
-                              if e.correlation_id() > bounds[0]])["lost_launches"]
+        lost_markers = whole["lost_launches"]
+    CAPTURES.close(dict(whole, lost_markers=lost_markers))
     parts = [[] for _ in works]
     for e in events if not lost_markers else ():
         k = bisect.bisect_left(bounds, e.correlation_id()) - 1
@@ -393,6 +452,7 @@ def _busy_session(works: dict, dev: torch.device) -> dict:
         profiling.sync(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
         a = audit(evs)
+        CAPTURES.ran(a["kernel_launches"])
         if lost_markers:
             a["lost_markers"] = lost_markers
         out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_ops": len(work),
@@ -445,6 +505,7 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
         run()
         profiling.sync(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    CAPTURES.ran(captured["kernel_launches"])
     if wall_before_ms is not None:
         wall_ms = (wall_ms + wall_before_ms) / 2
     averages = prof.key_averages()
@@ -576,13 +637,16 @@ def trace_scan(ps, imgs: torch.Tensor, cfg: SlamConfig, dev: torch.device,
 # Kineto drops the kernels that then start before its window (its
 # "Out-of-range" count rises by as many), from a device-only trace as from
 # an exported one; a fresh process lost none. A job holds what a
-# long-running caller profiles, for a fresh process to run: the scan's trace
-# (trace_scan, no first pass), then trace_detail's reading of the export, in
-# a process of its own beside the busy shares of ``busy``
-# (bench_suite.busy_works) and the config-5 tools of ``cg`` (profile_cg in each layout, then
-# profile_cg_sharded)
+# long-running caller profiles, for fresh processes to run in turn (PARTS):
+# "trace", the scan's trace (trace_scan, no first pass), then trace_detail's
+# reading of the export, in a process of its own beside the busy shares of
+# ``busy`` (bench_suite.busy_works); then "cg", the config-5 tools of ``cg``
+# (profile_cg in each layout, then profile_cg_sharded) in a second fresh
+# process, whose first capture is config 5's: late in the first process the
+# config-5 captures lost their first kernels (PR 14's runs of the smoke)
 JOB_FILE, RESULT_FILE, STATE_FILE, FRAMES_FILE = "job.json", "result.json", "state.pt", "frames.pt"
 DETAIL_FILE = "detail.json"
+PARTS = ("trace", "cg")
 # seconds the job waits for trace_detail after its last solve
 DETAIL_TIMEOUT_S = 300
 _ROOT = Path(__file__).resolve().parents[2]
@@ -628,65 +692,75 @@ def cg_busy(figures: dict) -> dict:
             "retakes": figures["retakes"], "from": "profile_cg padded"}
 
 
-def do_job(job_dir: str, dev: torch.device) -> dict:
-    """The job in ``job_dir`` in this process; writes and returns its result:
-    each tool's figures, printed lines and seconds, trace_detail's JSON, the
-    busy shares (``busy``, by line) and the port's counters over the job
-    (``launches``)."""
+def part_file(part: str) -> str:
+    return f"result_{part}.json"
+
+
+def do_job(job_dir: str, dev: torch.device, part: str) -> dict:
+    """Part ``part`` (:data:`PARTS`) of the job in ``job_dir`` in this
+    process; writes and returns its result: each tool's figures, printed
+    lines and seconds, the port's counters over the part (``launches``),
+    every capture's record (``captures``, :class:`CaptureLog`) and the
+    part's seconds; for "trace" also trace_detail's JSON and the busy shares
+    (``busy``, by line, but config 5's)."""
     from slam_robot_tpu_torch.ops import ba_cg
     from slam_robot_tpu_torch.tools import bench_suite, profile_cg
 
+    t_part = time.perf_counter()
     ps, imgs, cfg, job = read_job(job_dir, dev)
     before = bench.counts()
-    tools = {}
-    busy_opts = job.get("busy")
+    tools, result = {}, {}
+    busy_opts, cg = job.get("busy"), job["cg"]
 
     def tool(name, fn):
         lines, t0 = [], time.perf_counter()
+        CAPTURES.tool = name
         figures = fn(lines.append)
         tools[name] = {"figures": figures, "lines": lines, "s": time.perf_counter() - t0}
 
-    tool("profile_trace", lambda emit: trace_scan(ps, imgs, cfg, dev, job_dir, job["top"],
-                                                  first_pass=False, emit=emit))
-    trace = tools["profile_trace"]["figures"]["trace"]
-    with open(os.path.join(job_dir, DETAIL_FILE), "w") as f:
-        reader = subprocess.Popen([sys.executable, "-m", "slam_robot_tpu_torch.tools.trace_detail",
-                                   "--trace", trace, "--json"], stdout=f, cwd=_ROOT)
-    try:
-        cg = job["cg"]
-        big = profile_cg.problem(cg["small"], dev) if cg is not None else None
-        # the busy shares in one session, then the config-5 tools
-        if busy_opts is not None:
-            t0 = time.perf_counter()
-            busy = busy_share_session(bench_suite.busy_works(
-                dev, busy_opts["small"], busy_opts["steps"], busy_opts["fleet_goals"], big), dev)
-            busy_s = time.perf_counter() - t0
-        if cg is not None:
-            for layout in cg["layouts"]:
-                cgc = ba_cg.CGConfig(max_free_frames=big[0].shape[0], gn_iters=cg["gn_iters"],
-                                     cg_iters=cg["cg_iters"], precond="diag", layout=layout)
-                tool(f"profile_cg {layout}", lambda emit: profile_cg.run(
-                    big, cgc, dev, cg["top"], out_dir=None, emit=emit))
-        if busy_opts is not None:
-            busy["5"] = cg_busy(tools["profile_cg padded"]["figures"])
-        if cg is not None and cg["shards"]:
+    if part == "trace":
+        tool("profile_trace", lambda emit: trace_scan(ps, imgs, cfg, dev, job_dir, job["top"],
+                                                      first_pass=False, emit=emit))
+        trace = tools["profile_trace"]["figures"]["trace"]
+        with open(os.path.join(job_dir, DETAIL_FILE), "w") as f:
+            reader = subprocess.Popen([sys.executable, "-m",
+                                       "slam_robot_tpu_torch.tools.trace_detail",
+                                       "--trace", trace, "--json"], stdout=f, cwd=_ROOT)
+        CAPTURES.reader = reader
+        try:  # the busy shares in one session while trace_detail reads
+            if busy_opts is not None:
+                t0 = time.perf_counter()
+                big = profile_cg.problem(cg["small"], dev)
+                CAPTURES.tool = "busy shares"
+                result["busy"] = busy_share_session(bench_suite.busy_works(
+                    dev, busy_opts["small"], busy_opts["steps"], busy_opts["fleet_goals"], big),
+                    dev)
+                result["busy_s"] = time.perf_counter() - t0
+            rc = reader.wait(timeout=DETAIL_TIMEOUT_S)
+        finally:
+            if reader.poll() is None:
+                reader.kill()
+                reader.wait()
+        if rc != 0:
+            raise RuntimeError(f"trace_detail exited {rc} on {trace}")
+        with open(os.path.join(job_dir, DETAIL_FILE)) as f:
+            result["detail"] = json.load(f)
+    elif part == "cg":
+        big = profile_cg.problem(cg["small"], dev)
+        for layout in cg["layouts"]:
+            cgc = ba_cg.CGConfig(max_free_frames=big[0].shape[0], gn_iters=cg["gn_iters"],
+                                 cg_iters=cg["cg_iters"], precond="diag", layout=layout)
+            tool(f"profile_cg {layout}", lambda emit: profile_cg.run(
+                big, cgc, dev, cg["top"], out_dir=None, emit=emit))
+        if cg["shards"]:
             tool("profile_cg_sharded", lambda emit: _sharded(
                 dev, cg, big, tools.get("profile_cg padded"), emit))
-        rc = reader.wait(timeout=DETAIL_TIMEOUT_S)
-    finally:
-        if reader.poll() is None:
-            reader.kill()
-            reader.wait()
-    if rc != 0:
-        raise RuntimeError(f"trace_detail exited {rc} on {trace}")
-    with open(os.path.join(job_dir, DETAIL_FILE)) as f:
-        detail = json.load(f)
+    else:
+        raise ValueError(f"no part {part!r}: one of {PARTS}")
     after = bench.counts()
-    result = {"tools": tools, "detail": detail,
-              "launches": {k: v - before[k] for k, v in after.items()}}
-    if busy_opts is not None:
-        result["busy"], result["busy_s"] = busy, busy_s
-    with open(os.path.join(job_dir, RESULT_FILE), "w") as f:
+    result.update(tools=tools, launches={k: v - before[k] for k, v in after.items()},
+                  captures=CAPTURES.records, s=time.perf_counter() - t_part)
+    with open(os.path.join(job_dir, part_file(part)), "w") as f:
         json.dump(result, f)
     return result
 
@@ -707,27 +781,55 @@ def _sharded(dev: torch.device, cg: dict, big: tuple, padded: dict | None, emit)
 
 
 def run_job(job_dir: str, dev: torch.device, timeout: float) -> dict:
-    """Run :func:`write_job`'s job in a fresh process (``python -m
-    slam_robot_tpu_torch.tools.profile_trace --job DIR``) and wait for it at
-    most ``timeout`` s; returns :func:`do_job`'s result. Raises when the
-    process exits other than 0 or runs out of time (it and what it started
-    are then killed)."""
-    result = os.path.join(job_dir, RESULT_FILE)
-    if os.path.exists(result):
-        os.remove(result)
-    cmd = [sys.executable, "-m", "slam_robot_tpu_torch.tools.profile_trace",
-           "--job", os.path.abspath(job_dir), "--device", dev.type]
-    proc = subprocess.Popen(cmd, cwd=_ROOT, start_new_session=True)
-    try:
-        rc = proc.wait(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.wait()
-        raise RuntimeError(f"the profiling job in {job_dir} ran past {timeout} s") from None
-    if rc != 0:
-        raise RuntimeError(f"the profiling job in {job_dir} exited {rc}")
-    with open(result) as f:
-        return json.load(f)
+    """Run :func:`write_job`'s job in fresh processes, one a part
+    (``python -m slam_robot_tpu_torch.tools.profile_trace --job DIR --part
+    P``; the "cg" part only where the job has ``cg``), each started when the
+    one before it has ended, and wait for them at most ``timeout`` s in all.
+    Returns the parts' results as one, written to ``RESULT_FILE``: the tools
+    of both, the trace's detail and busy shares (config 5's, "5", from the
+    padded solve of the second process), the counters summed, every
+    capture's record with its process (1 or 2) and each process's seconds
+    (``processes``). Raises when a process exits other than 0 or runs out of
+    time (it and what it started are then killed)."""
+    with open(os.path.join(job_dir, JOB_FILE)) as f:
+        job = json.load(f)
+    parts = PARTS if job["cg"] is not None else PARTS[:1]
+    for name in (RESULT_FILE, *map(part_file, PARTS)):
+        if os.path.exists(os.path.join(job_dir, name)):
+            os.remove(os.path.join(job_dir, name))
+    deadline = time.perf_counter() + timeout
+    results = {}
+    for part in parts:
+        cmd = [sys.executable, "-m", "slam_robot_tpu_torch.tools.profile_trace",
+               "--job", os.path.abspath(job_dir), "--part", part, "--device", dev.type]
+        proc = subprocess.Popen(cmd, cwd=_ROOT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=max(0.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise RuntimeError(f"the profiling job in {job_dir} ran past {timeout} s") from None
+        if rc != 0:
+            raise RuntimeError(f"the profiling job in {job_dir} exited {rc} in its {part} part")
+        with open(os.path.join(job_dir, part_file(part))) as f:
+            results[part] = json.load(f)
+    first = results["trace"]
+    result = {"tools": dict(first["tools"]), "detail": first["detail"],
+              "launches": dict(first["launches"]), "captures": [], "processes": {}}
+    for n, (part, r) in enumerate(results.items(), 1):
+        if n > 1:
+            result["tools"].update(r["tools"])
+            for k, v in r["launches"].items():
+                result["launches"][k] += v
+        result["captures"] += [dict(c, process=n) for c in r["captures"]]
+        result["processes"][part] = r["s"]
+    if "busy" in first:
+        result["busy"] = dict(first["busy"], **{"5": cg_busy(
+            result["tools"]["profile_cg padded"]["figures"])})
+        result["busy_s"] = first["busy_s"]
+    with open(os.path.join(job_dir, RESULT_FILE), "w") as f:
+        json.dump(result, f)
+    return result
 
 
 def main(argv=None) -> int:
@@ -740,13 +842,15 @@ def main(argv=None) -> int:
                     help="torch device to run on (default: cuda; cpu for a CPU run)")
     ap.add_argument("--small", action="store_true",
                     help="160x120, depth 4, 96 features, 24 warm frames")
-    ap.add_argument("--job", metavar="DIR", help="run the job that write_job left in DIR")
+    ap.add_argument("--job", metavar="DIR", help="run a part of the job that write_job left "
+                                                  "in DIR")
+    ap.add_argument("--part", choices=PARTS, default=PARTS[0], help="the job's part to run")
     args = ap.parse_args(argv)
     dev = profiling.open_device(args.device, "profile_trace")
     if dev is None:
         return 1
     if args.job:
-        do_job(args.job, dev)
+        do_job(args.job, dev, args.part)
         return 0
     cfg = profiling.SMALL if args.small else SlamConfig()
     n_warm = 24 if args.small else N_WARM
@@ -760,4 +864,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # run as the package's module, so that the tools it calls (profile_cg)
+    # log their captures in the same CAPTURES
+    from slam_robot_tpu_torch.tools import profile_trace
+
+    sys.exit(profile_trace.main())

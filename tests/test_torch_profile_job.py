@@ -1,8 +1,9 @@
-"""Phase 14's fresh process on the CPU: ``profile_trace.write_job`` writes
+"""Phase 14's fresh processes on the CPU: ``profile_trace.write_job`` writes
 the job (the state, the frames, the config and what to run) that
-``python -m slam_robot_tpu_torch.tools.profile_trace --job DIR`` reads and
-runs; ``run_job`` runs it and raises when the process exits other than 0
-or runs out of time. A tiny job: the bench state at tests/test_pipeline.CFG
+``python -m slam_robot_tpu_torch.tools.profile_trace --job DIR --part P``
+reads and runs, the trace in a first process and the config-5 tools in a
+second; ``run_job`` runs them one after the other and raises when a process
+exits other than 0 or the job runs out of time. A tiny job: the bench state at tests/test_pipeline.CFG
 with every BA cap at 2, 2 frames, profile_cg's CI problem in one layout and
 profile_cg_sharded over 1 and 2 shards; and one that also takes every busy
 share that phases 8 and 11 of ``chip_smoke.py`` report (bench_suite's
@@ -93,6 +94,51 @@ def test_the_job_runs_in_a_fresh_process(job):
     assert res["detail"]["rows"] and set(res["detail"]["shortfall"]) == {"newton_track",
                                                                          "pyramid_flat"}
     assert set(res["launches"]) == set(bench.counts())
+    # the config-5 tools ran in a second fresh process, after the first
+    assert list(res["processes"]) == ["trace", "cg"]
+    assert all(v > 0 for v in res["processes"].values())
+
+
+def test_the_config_5_tools_run_in_a_second_fresh_process(job):
+    """Every capture's record: the trace's in the first process, the
+    config-5 tools' in the second, whose first session is profile_cg's
+    (session 0, nothing launched before it); each with its session's index
+    in its process, the launches before it, whether trace_detail's reader
+    ran, and its audit's lost_at."""
+    job_dir, _, _ = job
+    res = profile_trace.run_job(job_dir, CPU, timeout=600)
+    caps = res["captures"]
+    assert [c["tool"] for c in caps if c["process"] == 1] == ["profile_trace"]
+    second = [c for c in caps if c["process"] == 2]
+    assert [c["tool"] for c in second] == ["profile_cg scatter"]
+    for n in (1, 2):
+        mine = [c for c in caps if c["process"] == n]
+        assert [c["session"] for c in mine] == list(range(len(mine)))
+    assert second[0]["session"] == 0 and second[0]["launches_before"] == 0
+    for c in caps:
+        assert c["lost_at"] == [] and c["launches"] == 0  # the CPU's captures launch nothing
+        assert c["reader_running"] is False and c["s"] >= 0
+
+
+def test_the_capture_log_counts_the_launches_before_each_capture():
+    """CaptureLog: a session's record holds the launches of the captures
+    and unprofiled runs before it, runs of its own work made just before it
+    (before_next) counted once its audit tells their size."""
+    log = profile_trace.CaptureLog()
+    log.tool = "a"
+    log.open()
+    log.close({"kernel_launches": 3, "lost_at": []})
+    log.ran(3)                      # a's unprofiled pass
+    log.tool = "b"
+    log.before_next(2)              # two runs of b's work, then b's capture
+    log.open()
+    log.close({"kernel_launches": 5, "lost_at": [0, 1], "lost_markers": 3})
+    log.close({"kernel_launches": 9, "lost_at": []})   # no session open: nothing
+    a, b = log.records
+    assert (a["tool"], a["session"], a["launches_before"], a["launches"]) == ("a", 0, 0, 3)
+    assert (b["tool"], b["session"], b["launches_before"], b["launches"]) == ("b", 1, 16, 5)
+    assert b["lost_at"] == [0, 1] and b["lost_markers"] == 3 and log.launched == 21
+    assert a["reader_running"] is False
 
 
 def test_a_job_whose_process_fails_raises(tmp_path, job):
