@@ -86,8 +86,9 @@ Phases, one line each (phases 2 and 3 several):
      of the JAX package's tools/parity.py (six draws, 284 frames), each
      sequence in a process of its own (python -m
      slam_robot_tpu_torch.tools.parity --seq NAME --out F), the four at
-     once (a step is the host's work, and the card idles most of it; the
-     steps' ms are therefore not one process's alone): per draw its drift against the JAX package's golden and the
+     once and beside phases 8, 10, 11 and 12 (a step is the host's work,
+     and the card idles most of it; the steps' ms are therefore not one
+     process's alone): per draw its drift against the JAX package's golden and the
      gate (printed with its verdict and counted in one "parity drift: k of
      6" line, a reading, not a gate of this script: the goldens are XLA:CPU's
      float order), truth ATE and cap, median px and golden + 0.1, n_obs,
@@ -100,7 +101,8 @@ Phases, one line each (phases 2 and 3 several):
      and 3's tolerances: the forward pass with no backward stack, the
      backward pass on the view ring through a per-lane plane offset with no
      window cache, each timed beside its bound
- 10. the step's seven off-by-default knobs at once (mid-frame re-solve,
+ 10. (in a process of its own, python chip_smoke.py --part knobs, beside
+     phases 8, 9, 11 and 12) the step's seven off-by-default knobs at once (mid-frame re-solve,
      constant-velocity motion, cycle retries, adaptive first attempt,
      adaptive seed depth, idle-frame drop, duplicate cleaning) on
      SlamConfig(): the sweep's frames 0-31, then their last camera pair
@@ -129,11 +131,14 @@ Phases, one line each (phases 2 and 3 several):
      frames; the multi-robot map at R = 8 lowering its mean point error),
      then tools/calibrate --synthetic 20 at 640x480 (phase 4's launch gates,
      finite solved k, reprojection error below its value before the solve)
- 12. the alternative trackers, host I/O and the live view: (a) the step
+ 12. (in a process of its own, python chip_smoke.py --part alt, beside
+     phases 8-11; its inputs, phase 4's frames and state after 16 frames
+     and phase 6's summary, written to build/smoke_parts/) the alternative
+     trackers, host I/O and the live view: (a) the step
      with tracker_impl="lanes" and (b) with tracker_kind="klt" at
-     SlamConfig()'s widths over the sweep's frames 0-63 (two pyramid_flat
-     launches a frame, no newton_track; phase 4's gates, at least 500 and
-     200 points); (c) from (a)'s state after frame 16, matcher.track for
+     SlamConfig()'s widths over the sweep's frames 0-31 (two pyramid_flat
+     launches a frame, no newton_track; phase 4's gates, at least 250 and
+     100 points, the gates for 32 frames); (c) from (a)'s state after frame 16, matcher.track for
      frame 17 with each on the card and on the host's CPU (matched masks
      agree on 98 % of candidate lanes, positions of lanes matched on both
      within 2e-3 px on 95 %), each tracker's CUDA-graph pass equal to its
@@ -244,9 +249,10 @@ TIE_SHARE_MAX = 0.2
 EXEMPT_GOALS_MAX = 0.5
 
 # phase 12: the alternative trackers' sweep (the bench sweep's first
-# frames; the time may force 32), the state (c) starts from (after frame
-# 16), the frames fed through the native ring and served by the live view
-ALT_FRAMES = 64
+# frames; 64 until the script's time limit forced 32), the state (c) starts
+# from (after frame 16), the frames fed through the native ring and served
+# by the live view
+ALT_FRAMES = 32
 ALT_STATE_FRAME = 16
 RING_FRAMES = 16
 SERVE_FRAMES = 16
@@ -263,6 +269,12 @@ BRUTE_SAD = 2.0
 
 # phase 9: seconds the parity processes may take together
 PARITY_TIMEOUT_S = 480
+# phases 9, 10 and 12 run in processes of their own, all at once, beside
+# phases 8 and 11 in this one (each phase is the host's work, and the card
+# idles through most of it): the seconds the processes may take together,
+# and the directory of their inputs, logs and reports
+PARTS_TIMEOUT_S = 720
+PARTS_DIR = Path(__file__).resolve().parent / "build" / "smoke_parts"
 
 # phase 13: bench.py's warm frames and timed ones, seed 0 (seeds 1 and 2,
 # and the 64 timed frames, run in the standalone bench, python -m
@@ -1776,59 +1788,149 @@ def phase_parity_kernels() -> dict:
     return {"pyramid_flat": pyr, "newton_track": track}
 
 
-def _parity_reports(names, out_dir: Path, timeout: float) -> dict:
-    """Each sequence of ``names`` replayed by the port's parity tool in a
-    process of its own (``python -m slam_robot_tpu_torch.tools.parity --seq
-    NAME --out F``), all at once; their reports by name. Fails on a process
-    that leaves no report (its log's end in the message) or that runs past
-    ``timeout`` s; every process is ended before it returns."""
+def _start(name: str, argv: list, out_dir: Path) -> subprocess.Popen:
+    """``python argv`` from the checkout's root in a process group of its
+    own, its output to ``out_dir/NAME.log``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / f"{name}.log", "w") as f:
+        return subprocess.Popen([sys.executable, *argv], stdout=f, stderr=subprocess.STDOUT,
+                                cwd=Path(__file__).resolve().parent, start_new_session=True)
+
+
+def _stop(procs: dict) -> None:
+    """End every process of ``procs`` ({name: Popen}) that still runs, and
+    what it started."""
     import os
     import signal
 
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    for proc in procs.values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def _wait(what: str, proc: subprocess.Popen, deadline: float) -> None:
+    """Wait for ``proc`` until ``deadline`` (time.time()); fails past it."""
     try:
-        for name in names:
-            out, log = out_dir / f"{name}.json", out_dir / f"{name}.log"
-            out.unlink(missing_ok=True)
-            with open(log, "w") as f:
-                procs[name] = subprocess.Popen(
-                    [sys.executable, "-m", "slam_robot_tpu_torch.tools.parity", "--seq", name,
-                     "--out", str(out), "--device", "cuda"],
-                    stdout=f, stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent,
-                    start_new_session=True)
-        deadline = time.time() + timeout
-        reports = {}
-        for name, proc in procs.items():
-            try:
-                proc.wait(timeout=max(1.0, deadline - time.time()))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"phase 9 {name}: the replay ran past {timeout} s") from None
-            out = out_dir / f"{name}.json"
-            if not out.exists():  # the tool writes its report after every draw
-                tail = (out_dir / f"{name}.log").read_text()[-2000:]
-                raise AssertionError(f"phase 9 {name}: the replay exited {proc.returncode} "
-                                     f"with no report:\n{tail}")
-            reports[name] = json.loads(out.read_text())["sequences"][0]
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
+        proc.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{what}: the process ran past its time") from None
+
+
+def _start_parity(names, out_dir: Path) -> dict:
+    """Each sequence of ``names`` replayed by the port's parity tool in a
+    process of its own (``python -m slam_robot_tpu_torch.tools.parity --seq
+    NAME --out F``), all at once; {name: process}."""
+    procs = {}
+    for name in names:
+        (out_dir / f"{name}.json").unlink(missing_ok=True)
+        procs[name] = _start(name, ["-m", "slam_robot_tpu_torch.tools.parity", "--seq", name,
+                                    "--out", str(out_dir / f"{name}.json"), "--device", "cuda"],
+                             out_dir)
+    return procs
+
+
+def _parity_reports(procs: dict, out_dir: Path, deadline: float) -> dict:
+    """The reports of :func:`_start_parity`'s processes by name. Fails on a
+    process that leaves no report (its log's end in the message) or that
+    runs past ``deadline``."""
+    reports = {}
+    for name, proc in procs.items():
+        _wait(f"phase 9 {name}", proc, deadline)
+        out = out_dir / f"{name}.json"
+        if not out.exists():  # the tool writes its report after every draw
+            tail = (out_dir / f"{name}.log").read_text()[-2000:]
+            raise AssertionError(f"phase 9 {name}: the replay exited {proc.returncode} "
+                                 f"with no report:\n{tail}")
+        reports[name] = json.loads(out.read_text())["sequences"][0]
     return reports
 
 
-def phase_parity(card: str):
+# the phases that run_part runs in a process of its own, and the lines of
+# its output that the script prints as theirs
+PARTS = {"knobs": "phase 10", "alt": "phase 12"}
+
+
+def _write_part_inputs(frames, direct, serve_baseline: dict) -> None:
+    """What run_part reads: the sweep's frames (phase 10 takes the first
+    KNOB_FRAMES, phase 12 the first ALT_FRAMES), phase 4's state after the
+    first RING_FRAMES frames (a utils/checkpoint file) and phase 6's
+    synthetic run's summary."""
+    import torch
+
+    from slam_robot_tpu_torch.utils import checkpoint
+
+    PARTS_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(torch.stack(frames).cpu(), PARTS_DIR / "frames.pt")
+    checkpoint.save(direct, str(PARTS_DIR / "direct.pt"))
+    (PARTS_DIR / "serve_baseline.json").write_text(json.dumps(
+        {k: serve_baseline[k] for k in ("n_points", "n_obs")}))
+
+
+def _start_part(name: str) -> subprocess.Popen:
+    """``python chip_smoke.py --part NAME`` (:func:`run_part`)."""
+    (PARTS_DIR / f"{name}.json").unlink(missing_ok=True)
+    return _start(name, [str(Path(__file__).resolve()), "--part", name], PARTS_DIR)
+
+
+def _part_result(name: str, proc: subprocess.Popen, deadline: float) -> tuple:
+    """(kernel counts, summary) of :func:`run_part`'s process ``name``, its
+    phase's lines printed; fails on an exit other than 0 (its log's end in
+    the message) or past ``deadline``."""
+    _wait(PARTS[name], proc, deadline)
+    log = (PARTS_DIR / f"{name}.log").read_text()
+    if proc.returncode != 0:
+        raise AssertionError(f"{PARTS[name]}: its process exited {proc.returncode}:\n"
+                             f"{log[-3000:]}")
+    for line in log.splitlines():
+        if line.startswith(PARTS[name]):
+            print(line, flush=True)
+    res = json.loads((PARTS_DIR / f"{name}.json").read_text())
+    return res["counts"], res["summary"]
+
+
+def run_part(name: str) -> int:
+    """The child of :func:`_start_part`: phase 10 ("knobs") or phase 12
+    ("alt") on the card from :func:`_write_part_inputs`' files, its gates
+    as in the script's own process; writes (kernel counts, summary) to
+    PARTS_DIR/NAME.json."""
+    import torch
+
+    from slam_robot_tpu_torch import SlamConfig
+    from slam_robot_tpu_torch.models import pipeline
+    from slam_robot_tpu_torch.ops.cuda import build
+    from slam_robot_tpu_torch.utils import checkpoint
+
+    card = _card_line()
+    build.load_library()
+    frames = list(torch.load(PARTS_DIR / "frames.pt", weights_only=True).cuda())
+    if name == "knobs":
+        counts, summary = phase_knobs(frames[:KNOB_FRAMES], card)
+    else:
+        direct = checkpoint.restore(pipeline.init(SlamConfig(), device="cuda"),
+                                    str(PARTS_DIR / "direct.pt"), torch.device("cuda"))
+        baseline = json.loads((PARTS_DIR / "serve_baseline.json").read_text())
+        counts, summary = phase_alt(frames[:ALT_FRAMES], card, direct, baseline)
+    _no_foreign_modules()
+    (PARTS_DIR / f"{name}.json").write_text(json.dumps({"counts": counts, "summary": summary}))
+    return 0
+
+
+def _no_foreign_modules() -> None:
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "slam_robot_tpu", "tools"))
+    if foreign:
+        raise AssertionError(f"the port loaded JAX, the JAX package or its tools: {foreign}")
+
+
+def phase_parity(card: str, procs: dict, t0: float):
     """Phase 9: the port's parity replay of the four sequences on the card
-    (six draws), a process a sequence, all at once (:func:`_parity_reports`).
-    Returns (kernel counts, the phase's summary, the kernels at the
-    sequences' shapes)."""
+    (six draws), a process a sequence, all at once (``procs``, of
+    :func:`_start_parity`, started at ``t0``). Returns (kernel counts, the
+    phase's summary, the kernels at the sequences' shapes)."""
     from slam_robot_tpu_torch.tools import parity
 
-    t0 = time.time()
-    reports = _parity_reports(list(parity.SEQUENCES),
-                              Path(__file__).resolve().parent / "build" / "parity9",
-                              PARITY_TIMEOUT_S)
+    reports = _parity_reports(procs, PARTS_DIR, t0 + PARITY_TIMEOUT_S)
     counts = {"pyramid_flat": 0, "newton_track": 0, "sep5_reflect101": 0, "sweeps": 0}
     for name, spec in parity.SEQUENCES.items():
         rep = reports[name]
@@ -3024,10 +3126,10 @@ def phase_profilers(warm, card: str):
         profile_scan.run_variant(name, cfg, frames, 0, dev, run_slam, start=warm, reps=0,
                                  emit=emit)
         for name, run_slam in (("default", True), ("noslam", False))])
-    # the profiled passes and the config-5 tools in one fresh process
-    # (ROADMAP C6): the job goes under the checkout's build/, phase 13's warm
-    # state with it, and so do phase 8's fleet profile and phase 11's busy
-    # shares (config 5's from profile_cg's padded solve)
+    # the profiled passes in a fresh process, then the config-5 tools in a
+    # second one (ROADMAP C6): the job goes under the checkout's build/,
+    # phase 13's warm state with it, and so do phase 8's fleet profile and
+    # phase 11's busy shares (config 5's from profile_cg's padded solve)
     job_dir = str(Path(__file__).resolve().parent / "build" / "profile14")
     profile_trace.write_job(job_dir, warm, torch.stack(frames[:TRACE_FRAMES]), cfg, top=15,
                             cg={"layouts": ["scatter", "padded"], "gn_iters": 5, "cg_iters": 20,
@@ -3121,12 +3223,15 @@ def main() -> int:
     ap.add_argument("--profile", type=int, default=0, metavar="K",
                     help="after the main path, profile K more frames of the sweep")
     ap.add_argument("--out", default="build/profile", help="directory for profile tables")
+    ap.add_argument("--part", choices=sorted(PARTS), help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("phase 0: torch sees no CUDA device")
+    if args.part:
+        return run_part(args.part)
     card = _card_line()
     print(f"phase 0 card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
@@ -3152,8 +3257,7 @@ def main() -> int:
     def took(phase: str) -> None:
         print(f"{phase} done at {time.time() - t_run:.1f} s", flush=True)
 
-    knob_frames = frames[:KNOB_FRAMES]
-    alt_frames = frames[:ALT_FRAMES]
+    part_frames = frames[:max(KNOB_FRAMES, ALT_FRAMES)]
     sep5 = phase_blur(frames[0])
     entries = [phase_pyramid(frames[0])]
     took("phase 2")
@@ -3175,17 +3279,33 @@ def main() -> int:
     entries[1]["newton_level"] = newton_level
     probe_entries, probes, sep5["launches"] = phase_probes()
     took("phase 7")
-    loop_counts, loop, loop_kernels = phase_loop(card)
-    took("phase 8")
-    parity_counts, parity_sum, parity_kernels = phase_parity(card)
-    took("phase 9")
-    knob_counts, knobs = phase_knobs(knob_frames, card)
-    took("phase 10")
-    suite_counts, suite, suite_kernels = phase_suite(card)
-    took("phase 11")
-    alt_counts, alt = phase_alt(alt_frames, card, direct16, runs["synthetic"]["summary"])
-    del alt_frames, direct16
-    took("phase 12")
+    # phases 9, 10 and 12 in processes of their own, all at once, beside
+    # phases 8 and 11 here; phase 9's kernels are timed once they have ended
+    from slam_robot_tpu_torch.tools import parity
+
+    _write_part_inputs(part_frames, direct16, runs["synthetic"]["summary"])
+    del part_frames, direct16
+    t_parts = time.time()
+    procs = {}
+    try:
+        parity_procs = _start_parity(list(parity.SEQUENCES), PARTS_DIR)
+        procs.update(parity_procs)
+        procs.update({name: _start_part(name) for name in PARTS})
+        loop_counts, loop, loop_kernels = phase_loop(card)
+        took("phase 8")
+        suite_counts, suite, suite_kernels = phase_suite(card)
+        took("phase 11")
+        deadline = t_parts + PARTS_TIMEOUT_S
+        for name in PARTS:
+            _wait(PARTS[name], procs[name], deadline)
+        parity_counts, parity_sum, parity_kernels = phase_parity(card, parity_procs, t_parts)
+        took("phase 9")
+        knob_counts, knobs = _part_result("knobs", procs["knobs"], deadline)
+        took("phase 10")
+        alt_counts, alt = _part_result("alt", procs["alt"], deadline)
+        took("phase 12")
+    finally:
+        _stop(procs)
     bench_counts, bench_sum, warm = phase_bench(ps, card)
     del ps
     took("phase 13")
@@ -3208,10 +3328,7 @@ def main() -> int:
                                suite_kernels[e["name"]]["max_abs_err"])
     sep5["path"] = "phase 7: probe2's reference, pyramid.blur and pyramid.pyr_down"
     entries += [sep5] + probe_entries
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "slam_robot_tpu", "tools"))
-    if foreign:
-        raise AssertionError(f"the port loaded JAX, the JAX package or its tools: {foreign}")
+    _no_foreign_modules()
     print(json.dumps({"main_path": summary, "replay": runs, "probes": probes,
                       "closed_loop": loop, "parity": parity_sum, "knobs": knobs,
                       "bench_suite": suite, "alt_trackers_io_view": alt, "bench": bench_sum,
