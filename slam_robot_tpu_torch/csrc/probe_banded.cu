@@ -34,15 +34,24 @@
 // is a float4 of its input row), one element a thread otherwise. On the
 // card one element a thread beat four (g1, g4), g4's G loads ran faster
 // issued together than each behind its lane test, and a shared-memory tile
-// lost to its barrier (g5). probe_banded_pair: one thread per element of the
-// grouped band matrix, built from the same where-expressions as the JAX
-// function, so the result is exact. probe_sample_grouped: the grouping only
-// fed the MXU, so this kernel samples directly: one warp per lane, the
-// window in shared memory, four bilinear taps per output. Rows first (value
-// or d/dy), then columns (value or d/dx), each product and sum rounded on
-// its own (__fmul_rn, __fadd_rn: no contraction into FMAs), which is the
-// plain version's arithmetic; the output is the lane's [[V, V_x], [V_y,
-// V_xy]] blocks.
+// lost to its barrier (g5). probe_banded_pair: 32-bit indices (the entry
+// point refuses 2^31 elements or more), one thread per 4 consecutive columns
+// of an output row with one 16-byte store where K % 4 == 0 and the output
+// starts on 16 bytes (one element a thread otherwise), the row's lane,
+// fraction and start read once, every element built from the same
+// where-expressions as the JAX function, so the result is exact (it was one
+// element a thread in a grid-stride loop with 64-bit divisions).
+// probe_sample_grouped: the grouping only fed the MXU, so this kernel samples
+// directly: a block per lane (64 blocks at the probe's F, where four lanes a
+// block made 16), two outputs a thread ((a, j) and (a, j + S) of the lane's
+// [2S, 2S] output share their four taps and row pass), the taps read through
+// the L1 straight from the window, with no copy of it (the old kernel copied
+// all 32x32 pixels of a window, then took ~22 outputs a thread in turn).
+// Rows first (value or d/dy), then columns (value or d/dx), each product and
+// sum rounded on its own (__fmul_rn, __fadd_rn: no contraction into FMAs),
+// which is the plain version's arithmetic; the output is the lane's [[V,
+// V_x], [V_y, V_xy]] blocks.
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -56,12 +65,11 @@ using probe::warp_sum;
 
 enum LayoutCase { kRepeat = 0, kBroadcast = 1, kMaskedSum = 2, kBlockTranspose = 3 };
 
-constexpr int kThreads = 256;
 constexpr int kBmmWarps = 4;         // output rows (warps) a block of probe_bmm
 constexpr int kLayoutThreads = 128;  // a block of probe_layout's one-element kernels
 constexpr int kCopyThreads = 256;    // a block of probe_layout's 16-byte broadcast
-constexpr int kWin = 32;    // max window edge of probe_sample_grouped
-constexpr int kLanes = 4;   // lanes (warps) per block of probe_sample_grouped
+constexpr int kPairThreads = 256;   // a block of probe_banded_pair
+constexpr int kWin = 32;            // max window edge of probe_sample_grouped
 
 __global__ void __launch_bounds__(kBmmWarps * 32)
     bmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -175,56 +183,68 @@ int launch_layout(const void* in, void* out, int total, int G, int R, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void banded_pair_kernel(const float* __restrict__ frac,
-                                   const int* __restrict__ start,
-                                   float* __restrict__ out, int B, int G, int S,
-                                   int L) {
-  const int M = G * 2 * S;
-  const int K = G * L;
-  const size_t total = static_cast<size_t>(B) * M * K;
-  for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       idx < total; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t b = idx / (static_cast<size_t>(M) * K);
-    const int r = static_cast<int>((idx / K) % M);
-    const int k = static_cast<int>(idx % K);
-    const int g = r / (2 * S);
-    const int i2 = r % (2 * S);
-    const bool isd = i2 >= S;
-    const int i = isd ? i2 - S : i2;
-    const size_t lane = b * G + g;
-    const float fr = frac[lane];
-    const int st = start[lane] + L * g;
-    const float w0 = isd ? -1.0f : 1.0f - fr;
-    const float w1 = isd ? 1.0f : fr;
-    out[idx] = (k == i + st ? w0 : 0.0f) + (k == i + st + 1 ? w1 : 0.0f);
+// One thread per kV consecutive columns of an output row of the grouped
+// band matrix [B, M, K] (M = G*2S, K = G*L): kV = 4 with one 16-byte store
+// where K % 4 == 0 and the output starts on 16 bytes, else kV = 1. The row's
+// lane, fraction and start are read once; every element is the JAX
+// function's where-expressions, so the result is exact. 32-bit indices: the
+// entry point refuses 2^31 elements or more.
+template <int kV>
+__global__ void __launch_bounds__(kPairThreads)
+banded_pair_kernel(const float* __restrict__ frac, const int* __restrict__ start,
+                   float* __restrict__ out, int n, int M, int K, int G, int S, int L) {
+  const int idx = blockIdx.x * kPairThreads + threadIdx.x;
+  if (idx >= n) return;
+  const int quads = K / kV;  // kV divides K
+  const int row = idx / quads;
+  const int k0 = kV * (idx - row * quads);
+  const int b = row / M, r = row - b * M;
+  const int g = r / (2 * S), i2 = r - g * (2 * S);
+  const bool isd = i2 >= S;
+  const int i = isd ? i2 - S : i2;
+  const int lane = b * G + g;
+  const float fr = frac[lane];
+  const int st = start[lane] + L * g;
+  const float w0 = isd ? -1.0f : 1.0f - fr;
+  const float w1 = isd ? 1.0f : fr;
+  float v[kV];
+#pragma unroll
+  for (int u = 0; u < kV; ++u) {
+    const int k = k0 + u;
+    v[u] = (k == i + st ? w0 : 0.0f) + (k == i + st + 1 ? w1 : 0.0f);
+  }
+  float* dst = out + row * K + k0;
+  if constexpr (kV == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    dst[0] = v[0];
   }
 }
 
+// A block per lane; thread e takes row a = e / S of the lane's [2S, 2S]
+// output and column j = e % S: the outputs (a, j) and (a, j + S), which share
+// the four taps and the row pass. The taps are read straight from the
+// window through the L1 (the (S+1) x (S+1) region at (y0, x0); taps outside
+// the window read 0), after the lane's four scalars: two dependent loads
+// before the first store, no shared memory, no barrier.
 __global__ void sample_kernel(const float* __restrict__ win,
                               const float* __restrict__ fxs,
                               const float* __restrict__ fys,
                               const int* __restrict__ x0s, const int* __restrict__ y0s,
-                              float* __restrict__ out, int F, int WH, int WW, int S) {
-  __shared__ float s_win[kLanes][kWin * kWin];
-  const int t = threadIdx.x;
-  const int wl = threadIdx.y;
-  const int f = blockIdx.x * kLanes + wl;
-  if (f >= F) return;  // whole warp leaves together
-  const float* wf = win + static_cast<size_t>(f) * WH * WW;
-  for (int e = t; e < WH * WW; e += 32) s_win[wl][(e / WW) * kWin + e % WW] = wf[e];
-  __syncwarp();
-  const float* sw = s_win[wl];
-  auto tap = [&](int r, int c) {
-    return (r >= 0 && r < WH && c >= 0 && c < WW) ? sw[r * kWin + c] : 0.0f;
-  };
+                              float* __restrict__ out, int WH, int WW, int S) {
+  const int f = blockIdx.x;
   const float fx = fxs[f], fy = fys[f];
-  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
   const int x0 = x0s[f], y0 = y0s[f];
+  const float* wf = win + static_cast<size_t>(f) * WH * WW;
+  auto tap = [&](int r, int c) {
+    return (r >= 0 && r < WH && c >= 0 && c < WW) ? __ldg(wf + r * WW + c) : 0.0f;
+  };
+  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
   const int S2 = 2 * S;
   float* o = out + static_cast<size_t>(f) * S2 * S2;
-  for (int e = t; e < S2 * S2; e += 32) {
-    const int a = e / S2, c = e % S2;
-    const int i = a % S, j = c % S;
+  for (int e = threadIdx.x; e < S2 * S; e += blockDim.x) {
+    const int a = e / S, j = e - a * S;
+    const int i = a < S ? a : a - S;
     const float va = tap(y0 + i, x0 + j), vb = tap(y0 + i, x0 + j + 1);
     const float vc = tap(y0 + i + 1, x0 + j), vd = tap(y0 + i + 1, x0 + j + 1);
     float t0, t1;
@@ -235,14 +255,9 @@ __global__ void sample_kernel(const float* __restrict__ win,
       t0 = __fsub_rn(vc, va);
       t1 = __fsub_rn(vd, vb);
     }
-    o[e] = c < S ? __fadd_rn(__fmul_rn(gx, t0), __fmul_rn(fx, t1))  // columns: value
-                 : __fsub_rn(t1, t0);                                 // columns: d/dx
+    o[a * S2 + j] = __fadd_rn(__fmul_rn(gx, t0), __fmul_rn(fx, t1));  // columns: value
+    o[a * S2 + j + S] = __fsub_rn(t1, t0);                              // columns: d/dx
   }
-}
-
-int blocks_for(size_t total) {
-  const size_t b = (total + kThreads - 1) / kThreads;
-  return static_cast<int>(b < 4096 ? (b > 0 ? b : 1) : 4096);
 }
 
 }  // namespace
@@ -298,12 +313,24 @@ extern "C" int probe_layout(const void* in, void* out, int B, int G, int R, int 
 
 extern "C" int probe_banded_pair(const void* frac, const void* start, void* out,
                                  int B, int G, int S, int L, void* stream) {
-  if (B <= 0 || G <= 0 || S <= 0 || L <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t total = static_cast<size_t>(B) * (G * 2 * S) * (G * L);
-  banded_pair_kernel<<<blocks_for(total), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(frac), static_cast<const int*>(start),
-      static_cast<float*>(out), B, G, S, L);
+  // B*M*K elements, indexed in 32 bits
+  const long long M = 2LL * G * S, K = static_cast<long long>(G) * L;
+  if (B <= 0 || G <= 0 || S <= 0 || L <= 0 || B * M * K > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int n = static_cast<int>(B * M * K / (vec ? 4 : 1));  // threads
+  const int blocks = n / kPairThreads + (n % kPairThreads != 0);
+  const auto* fr = static_cast<const float*>(frac);
+  const auto* st = static_cast<const int*>(start);
+  auto* o = static_cast<float*>(out);
+  if (vec) {
+    banded_pair_kernel<4><<<blocks, kPairThreads, 0, s>>>(fr, st, o, n, static_cast<int>(M),
+                                                          static_cast<int>(K), G, S, L);
+  } else {
+    banded_pair_kernel<1><<<blocks, kPairThreads, 0, s>>>(fr, st, o, n, static_cast<int>(M),
+                                                          static_cast<int>(K), G, S, L);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,11 +339,11 @@ extern "C" int probe_sample_grouped(const void* win, const void* fx, const void*
                                     int WH, int WW, int S, void* stream) {
   if (F <= 0 || S <= 0 || WH <= 0 || WW <= 0 || WH > kWin || WW > kWin)
     return static_cast<int>(cudaErrorInvalidValue);
-  dim3 block(32, kLanes);
-  dim3 grid((F + kLanes - 1) / kLanes);
-  sample_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  // 2S * S threads a lane, in whole warps, at most 1024
+  const int threads = std::min(1024, (2 * S * S + 31) / 32 * 32);
+  sample_kernel<<<F, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(win), static_cast<const float*>(fx),
       static_cast<const float*>(fy), static_cast<const int*>(x0),
-      static_cast<const int*>(y0), static_cast<float*>(out), F, WH, WW, S);
+      static_cast<const int*>(y0), static_cast<float*>(out), WH, WW, S);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,7 +27,7 @@ SAMPLE_GROUPED = build.Kernel("probe_sample_grouped", SOURCE)
 REPEAT, BROADCAST, MASKED_SUM, BLOCK_TRANSPOSE = range(4)
 
 _MAX_GRID_Y = 65535  # probe_bmm's batch entries: its grid's y extent
-_MAX_ELEMENTS = 2**31 - 1  # probe_layout indexes in 32 bits
+_MAX_ELEMENTS = 2**31 - 1  # probe_layout and probe_banded_pair index in 32 bits
 _MAX_WINDOW = 32
 
 
@@ -176,16 +176,21 @@ def banded_pair_grouped(frac, start, length: int, size: int, groups: int):
     """Grouped banded selection matrix [F/G, G*2*size, G*length] of lanes'
     ``frac`` [F] float32 and ``start`` [F] int32: each lane's 2*size rows
     hold its bilinear band (1 - frac, frac) and its derivative (-1, +1) at
-    columns start+i, start+i+1 of its own block of ``length`` columns."""
+    columns start+i, start+i+1 of its own block of ``length`` columns.
+    On either device it refuses 2^31 elements or more: the kernel indexes
+    in 32 bits."""
     f = frac.shape[0]
     if frac.dim() != 1 or tuple(start.shape) != (f,) or groups < 1 or f % groups:
         raise ValueError(f"need frac, start [F] with F % {groups} == 0, got "
                          f"{tuple(frac.shape)}, {tuple(start.shape)}")
+    b = f // groups
+    if b * (groups * 2 * size) * (groups * length) > _MAX_ELEMENTS:
+        raise ValueError(f"[{b}, {groups * 2 * size}, {groups * length}] elements: the kernel "
+                         f"indexes in 32 bits, at most {_MAX_ELEMENTS}")
     if not frac.is_cuda:
         return banded_pair_grouped_plain(frac, start, length, size, groups)
     build.check_cuda(frac, "frac")
     build.check_cuda(start, "start", dtype=torch.int32)
-    b = f // groups
     out = torch.empty((b, groups * 2 * size, groups * length), dtype=torch.float32,
                       device=frac.device)
     BANDED_PAIR.launch(frac.data_ptr(), start.data_ptr(), out.data_ptr(), b, groups, size,

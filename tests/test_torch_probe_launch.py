@@ -2,7 +2,7 @@
 (``probe_layout``) and T8-T10 (``probe_windows_async``), and of B2's
 ``sep5``, without a card: the C function kept after its first load, one
 launch counted a call, the stream handle read anew on every call, the
-wrappers' refusals (the layouts' 32-bit element limit among them; the async
+wrappers' refusals (the layouts' and g3's 32-bit element limit among them; the async
 copy's shared memory is refused by its entry point, whose error the wrapper
 raises) and the async copy on the CPU; phase 14's export gate of ``chip_smoke.py`` on hand-made
 ``trace_detail`` results; and the audit that every in-process profile of
@@ -174,6 +174,46 @@ def test_layout_takes_2_to_the_31_less_one_elements(c_calls):
     t = on_card(torch.empty((2**31 - 1) // (G * 3), G, device="meta"))
     out = pb.layout(t, pb.REPEAT, G, 3)
     assert tuple(out.shape) == (t.shape[0], G * 3) and len(c_calls) == 1
+
+
+@pytest.fixture
+def pair_calls(monkeypatch):
+    """A stub C function for BANDED_PAIR that records its arguments."""
+    calls = []
+    monkeypatch.setattr(pb.BANDED_PAIR, "_fn", lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(pb.BANDED_PAIR, "launches", 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 0x1111,
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    return calls
+
+
+@pytest.mark.parametrize("f,groups,size,length", [
+    (4, 1, 2**14, 2**16),        # [4, 2^15, 2^16]: 2^33 elements
+    (1, 1, 2**14, 2**16),        # [1, 2^15, 2^16]: 2^31
+    (2, 2, 2**12, 2**16),        # [1, 2^14, 2^17] at G = 2: 2^31
+])
+def test_banded_pair_refuses_2_to_the_31_elements_on_either_device(pair_calls, f, groups,
+                                                                    size, length):
+    """g3's kernel indexes in 32 bits, so the wrapper refuses an output of
+    2^31 elements or more before any launch or allocation, on the card's
+    path and on the CPU's."""
+    frac = torch.zeros(f)
+    start = torch.zeros(f, dtype=torch.int32)
+    for fr, st in ((frac, start), (on_card(frac), on_card(start))):
+        with pytest.raises(ValueError, match="32 bits"):
+            pb.banded_pair_grouped(fr, st, length, size, groups)
+    assert pair_calls == [] and pb.BANDED_PAIR.launches == 0
+
+
+def test_banded_pair_takes_an_output_under_2_to_the_31_elements(pair_calls):
+    """[1, 2^15, 2^16 - 1]: 2^31 - 2^15 elements go to the entry point (on
+    the meta device: nothing is allocated)."""
+    frac = on_card(torch.zeros(1, device="meta"))
+    start = on_card(torch.zeros(1, dtype=torch.int32, device="meta"))
+    out = pb.banded_pair_grouped(frac, start, 2**16 - 1, 2**14, 1)
+    assert tuple(out.shape) == (1, 2**15, 2**16 - 1) and len(pair_calls) == 1
+    assert pair_calls[0][3:7] == (1, 1, 2**14, 2**16 - 1) and pb.BANDED_PAIR.launches == 1
 
 
 def test_bmm_plain_and_layout_plain_at_tail_shapes():
