@@ -40,6 +40,7 @@ from slam_robot_tpu_torch.ops import patch as t_patch
 from slam_robot_tpu_torch.ops import pyramid as t_pyr
 from slam_robot_tpu_torch.ops import tracker_fused as t_tf
 from slam_robot_tpu_torch.ops.cuda import blur as t_blur
+from slam_robot_tpu_torch.ops.cuda import build
 from slam_robot_tpu_torch.ops.cuda import newton as t_newton
 from slam_robot_tpu_torch.ops.cuda import probe_banded as pb
 from slam_robot_tpu_torch.ops.cuda import probe_control as pc
@@ -619,6 +620,81 @@ def test_probe_pyramid_kernels_on_partial_tiles(cuda_device, shape):
     for got, want in zip(pp.two_level(img, k), pp.two_level_plain(img, k)):
         assert got.shape == want.shape
         assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (6, 6), (50, 70), (34, 646), (102, 150),
+                                   (488, 648)])
+def test_probe_two_level_eager_and_replayed_on_card(cuda_device, shape):
+    """T17 at the probe's 480x640, at the least size it takes (6x6: one
+    block, every tap reflected) and at shapes whose strips are partial in
+    both directions (l1 rows not a multiple of a strip's 8, columns not of
+    its 80), with W and W/2 off a multiple of 4 (element stores) and on it
+    (16-byte stores), against its plain version (atol 1e-5), one launch a
+    call, and a replayed CUDA graph equal to the eager call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[0] * shape[1])
+    img = torch.rand(shape, generator=gen, device=cuda_device)
+    k = pp.taps().to(cuda_device)
+    before = pp.TWO_LEVEL.launches
+    eager, replayed = _eager_and_replayed(lambda: pp.two_level(img, k))
+    assert pp.TWO_LEVEL.launches == before + 2
+    for got, again, want in zip(eager, replayed, pp.two_level_plain(img, k)):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-5
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,wh,ww", [(37, 32, 32), (5, 17, 23), (130, 14, 14), (1, 9, 31)])
+def test_probe_sample_grouped_at_small_windows_past_every_edge_on_card(cuda_device, f, wh, ww):
+    """g6 at windows under 32x32, lanes whose taps reach past every edge of
+    the window (they read 0), F not a multiple of the old kernel's four
+    lanes a block, exactly its plain version (both round each product and
+    sum alone), eager and replayed."""
+    gen = torch.Generator(device=cuda_device).manual_seed(f + wh * ww)
+    win = 255.0 * torch.rand((f, wh, ww), generator=gen, device=cuda_device)
+    fx = torch.rand((f,), generator=gen, device=cuda_device)
+    fy = torch.rand((f,), generator=gen, device=cuda_device)
+    lane = torch.arange(f, device=cuda_device)
+    x0 = (lane * 5 % (ww + 6) - 9).to(torch.int32)  # -9 .. ww - 4: taps past both edges
+    y0 = (lane * 7 % (wh + 6) - 9).to(torch.int32)
+    eager, replayed = _eager_and_replayed(lambda: pb.sample_grouped(win, fx, fy, x0, y0, 13, 1))
+    assert torch.equal(eager, pb.sample_grouped_plain(win, fx, fy, x0, y0, 13))
+    assert torch.equal(eager, replayed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,groups,length,size", [(64, 4, 32, 13), (64, 4, 30, 13),
+                                                  (9, 1, 33, 5), (12, 3, 7, 4)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_probe_banded_pair_at_other_widths_and_offsets_on_card(cuda_device, f, groups, length,
+                                                               size, aligned):
+    """g3 at K = G*L a multiple of 4 (16-byte stores) and not (one element
+    a thread), and into an output 4 bytes off 16 (one element a thread),
+    exactly its plain version, eager and replayed."""
+    gen = torch.Generator(device=cuda_device).manual_seed(f * length + size)
+    frac = torch.rand((f,), generator=gen, device=cuda_device)
+    start = torch.randint(-2, length, (f,), generator=gen, device=cuda_device).to(torch.int32)
+    b, m, k = f // groups, groups * 2 * size, groups * length
+    want = pb.banded_pair_grouped_plain(frac, start, length, size, groups)
+    if aligned:
+        eager, replayed = _eager_and_replayed(
+            lambda: pb.banded_pair_grouped(frac, start, length, size, groups))
+    else:
+        buf = torch.full((2, b * m * k + 1), float("nan"), device=cuda_device)
+        outs = buf[:, 1:].view(2, b, m, k)
+        assert outs[0].data_ptr() % 16 == 4
+
+        def launch(i):
+            pb.BANDED_PAIR.launch(frac.data_ptr(), start.data_ptr(), outs[i].data_ptr(), b,
+                                  groups, size, length, build.stream_handle(cuda_device))
+            return outs[i]
+
+        launch(0)
+        _eager_and_replayed(lambda: launch(1))
+        eager, replayed = outs[0], outs[1]
+    assert torch.equal(eager, want)
+    assert torch.equal(eager, replayed)
 
 
 def _loop_frame(dev):

@@ -1,0 +1,225 @@
+"""T17 (``probe_two_level``) and T13's g6 (``probe_sample_grouped``) and g3
+(``probe_banded_pair``) by CUDA-graph replay and by CUDA events, the
+kernels of ``csrc/probe_pyramid.cu`` and ``csrc/probe_banded.cu`` against
+other bodies of the same entry points (source files given on the command
+line, such as an earlier commit's, or an edited copy that tries other
+constants), in turns, in one process on the card. Run from the root of a
+checkout:
+
+    mkdir -p build/k15
+    git show <commit>:slam_robot_tpu_torch/csrc/probe_pyramid.cu > build/k15/parent_pyramid.cu
+    git show <commit>:slam_robot_tpu_torch/csrc/probe_banded.cu > build/k15/parent_banded.cu
+    python3 tests/torch_probe_turns.py --body parent_pyramid=build/k15/parent_pyramid.cu \\
+        --body parent_banded=build/k15/parent_banded.cu
+
+Each body is compiled by nvcc (``-Xptxas -v``, printed) into a library of
+its own under ``build/k15/``; the entry points it exports are put in the
+wrappers' places (``probe_pyramid.TWO_LEVEL``, ``probe_banded.SAMPLE_GROUPED``,
+``probe_banded.BANDED_PAIR``), so that every body runs through the same
+Python path. The checkout's own sources are the bodies "this_pyramid" and
+"this_banded". Each body is first held against the plain versions, each
+call twice and the two calls bitwise equal: T17 atol 1e-5 at the probe's
+480x640, at 6x6 and at shapes with partial strips; g6 and g3 exactly, at
+the probes' inputs, g6 at smaller windows with taps past every edge, g3 at
+K % 4 != 0 and on an output 4 bytes off 16. Then, per case, the bodies are
+timed in turns (A B ... B A): by graph replay (``chip_smoke._graph_ms``, 50
+calls a graph: the device alone) and by events (``chip_smoke._time_ms``,
+200 calls: the host's call and the device); B2's three ``sep5`` calls for
+T17's two levels are timed by graph beside it. Prints the card and one JSON
+line (also written to ``build/k15/turns.json``); exits 1 when a body
+disagrees with a plain version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path.cwd()
+sys.path.insert(0, str(ROOT))
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from slam_robot_tpu_torch.ops.cuda import blur as bk  # noqa: E402
+from slam_robot_tpu_torch.ops.cuda import build  # noqa: E402
+from slam_robot_tpu_torch.ops.cuda import probe_banded as pb  # noqa: E402
+from slam_robot_tpu_torch.ops.cuda import probe_pyramid as pp  # noqa: E402
+from slam_robot_tpu_torch.tools import probe_mosaic4 as t13  # noqa: E402
+from slam_robot_tpu_torch.tools.probe_pyramid_fused import frame  # noqa: E402
+
+OUT = ROOT / "build" / "k15"
+CSRC = ROOT / "slam_robot_tpu_torch" / "csrc"
+# entry point -> the wrapper's kernel that launches it
+KERNELS = {"probe_two_level": pp.TWO_LEVEL, "probe_sample_grouped": pb.SAMPLE_GROUPED,
+           "probe_banded_pair": pb.BANDED_PAIR}
+T17_SHAPES = [(480, 640), (6, 6), (50, 70), (102, 150), (34, 646)]
+
+
+def compile_bodies(bodies: dict) -> dict:
+    """{name: source} -> {name: {entry point: the loaded C function}}, every
+    nvcc started at once."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, src in bodies.items():
+        lib = OUT / f"lib_{name}.so"
+        cmd = [build._nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-shared", "-Xptxas=-v", f"-I{CSRC}", "-o", str(lib), str(src)]
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, p) in procs.items():
+        text = p.communicate()[0]
+        print(f"nvcc {name}: exit {p.returncode}\n{text}", flush=True)
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}")
+        so = ctypes.CDLL(str(lib))
+        fns[name] = {}
+        for entry in KERNELS:
+            fn = getattr(so, entry, None)
+            if fn is not None:
+                fn.argtypes = build.SIGNATURES[entry]
+                fn.restype = ctypes.c_int
+                fns[name][entry] = fn
+    return fns
+
+
+def _rand(shape, seed, dev, lo=0.0, hi=1.0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+
+def edge_lanes(dev, f: int, wh: int, ww: int, seed: int = 7):
+    """g6's inputs at a wh x ww window: random pixels and fractions, origins
+    from 3 past the top-left edge to past the bottom-right one."""
+    win = _rand((f, wh, ww), seed, dev, 0.0, 255.0)
+    fx, fy = _rand((f,), seed + 1, dev), _rand((f,), seed + 2, dev)
+    span = torch.arange(f, device=dev)
+    x0 = (span * 5 % (ww + 6) - 3 - t13.S // 2).to(torch.int32)
+    y0 = (span * 7 % (wh + 6) - 3 - t13.S // 2).to(torch.int32)
+    return win, fx, fy, x0, y0
+
+
+def checks(dev, entries) -> dict:
+    """The installed bodies of ``entries`` against the plain versions:
+    {case: (ok, the largest error, two calls bitwise equal)}."""
+    res = {}
+    if "probe_two_level" in entries:
+        res.update(t17_checks(dev))
+    if "probe_sample_grouped" in entries:
+        res.update(g6_checks(dev))
+    if "probe_banded_pair" in entries:
+        res.update(g3_checks(dev))
+    return res
+
+
+def t17_checks(dev) -> dict:
+    res = {}
+    k = pp.taps().to(dev)
+    for h, w in T17_SHAPES:
+        img = _rand((h, w), h * w, dev)
+        got, again = pp.two_level(img, k), pp.two_level(img, k)
+        want = pp.two_level_plain(img, k)
+        err = max(float((g - x).abs().max()) for g, x in zip(got, want))
+        res[f"t17 {h}x{w}"] = {"ok": err <= 1e-5, "max_abs_err": err,
+                               "repeatable": all(map(torch.equal, got, again))}
+    return res
+
+
+def g6_checks(dev) -> dict:
+    res = {}
+    g6 = {"probe": t13.sample_inputs(dev), "edges 32x32 F=37": edge_lanes(dev, 37, 32, 32),
+          "edges 17x23 F=5": edge_lanes(dev, 5, 17, 23), "edges 14x14 F=130": edge_lanes(dev, 130, 14, 14)}
+    for tag, args in g6.items():
+        got = pb.sample_grouped(*args, t13.S, 1)
+        again = pb.sample_grouped(*args, t13.S, 1)
+        want = pb.sample_grouped_plain(*args, t13.S)
+        res[f"g6 {tag}"] = {"ok": bool(torch.equal(got, want)),
+                            "max_abs_err": float((got - want).abs().max()),
+                            "repeatable": bool(torch.equal(got, again))}
+    return res
+
+
+def g3_checks(dev) -> dict:
+    res = {}
+    fr, st = t13.band_inputs(dev)
+    g3 = {"probe": (fr, st, t13.W, t13.S, t13.G), "K % 4 = 2": (fr, st, 30, t13.S, t13.G),
+          "K % 4 = 1, G = 1": (fr[:9], st[:9], 33, 5, 1)}
+    for tag, (a, b, length, size, groups) in g3.items():
+        got = pb.banded_pair_grouped(a, b, length, size, groups)
+        want = pb.banded_pair_grouped_plain(a, b, length, size, groups)
+        res[f"g3 {tag}"] = {"ok": bool(torch.equal(got, want)),
+                            "repeatable": bool(torch.equal(
+                                got, pb.banded_pair_grouped(a, b, length, size, groups)))}
+    # an output 4 bytes off 16 (element by element), through the entry point
+    buf = torch.empty(16 * 104 * 128 + 1, device=dev)
+    off = buf[1:].view(16, 104, 128)
+    assert off.data_ptr() % 16 == 4
+    pb.BANDED_PAIR.launch(fr.data_ptr(), st.data_ptr(), off.data_ptr(), 16, t13.G, t13.S, t13.W,
+                          build.stream_handle(dev))
+    res["g3 unaligned"] = {"ok": bool(torch.equal(
+        off, pb.banded_pair_grouped_plain(fr, st, t13.W, t13.S, t13.G))), "repeatable": True}
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--body", action="append", default=[], metavar="NAME=SOURCE",
+                    help="another source of some of the entry points")
+    ns = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    card = chip_smoke._card_line()
+    print(card, flush=True)
+    bodies = {"this_pyramid": CSRC / "probe_pyramid.cu", "this_banded": CSRC / "probe_banded.cu"}
+    bodies.update(dict(b.split("=", 1) for b in ns.body))
+    fns = compile_bodies(bodies)
+    dev = torch.device("cuda")
+    report = {"card": card, "checks": {}, "graph_ms": {}, "events_ms": {}}
+
+    def install(name):
+        for entry, fn in fns[name].items():
+            KERNELS[entry]._fn = fn
+
+    ok = True
+    for name in fns:
+        install(name)
+        report["checks"][name] = checks(dev, fns[name])
+        ok &= all(r["ok"] and r["repeatable"] for r in report["checks"][name].values())
+
+    img, k = frame(dev), pp.taps().to(dev)
+    g0, g1 = bk.gaussian_weights(pp.SIGMA0), bk.gaussian_weights(pp.SIGMA_DOWN)
+    sample, band = t13.sample_inputs(dev), t13.band_inputs(dev)
+    cases = {"probe_two_level": lambda: pp.two_level(img, k),
+             "probe_sample_grouped": lambda: pb.sample_grouped(*sample, t13.S, t13.G),
+             "probe_banded_pair": lambda: pb.banded_pair_grouped(*band, t13.W, t13.S, t13.G)}
+    for entry, call in cases.items():
+        names = [n for n in fns if entry in fns[n]]
+        order = names + list(reversed(names))
+        for key, timer in (("graph_ms", chip_smoke._graph_ms),
+                           ("events_ms", lambda f: chip_smoke._time_ms(f, 200))):
+            readings = {n: [] for n in names}
+            for n in order:
+                install(n)
+                readings[n].append(timer(call))
+            report[key][entry] = readings
+
+    def three_calls():
+        return bk.sep5(bk.sep5(bk.sep5(img, g0, 1), bk.PYRDOWN_WEIGHTS, 2), g1, 1)
+
+    report["b2_three_calls_graph_ms"] = [chip_smoke._graph_ms(three_calls) for _ in range(2)]
+    for kern in KERNELS.values():
+        kern._fn = None
+    report["ok"] = ok
+    text = json.dumps(report)
+    (OUT / "turns.json").write_text(text)
+    print(text, flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
