@@ -249,7 +249,7 @@ TIE_SHARE_MAX = 0.2
 EXEMPT_GOALS_MAX = 0.5
 
 # phase 12: the alternative trackers' sweep (the bench sweep's first
-# frames; 64 until the script's time limit forced 32), the state (c) starts
+# frames, as many as the script's time limit allows), the state (c) starts
 # from (after frame 16), the frames fed through the native ring and served
 # by the live view
 ALT_FRAMES = 32
@@ -1814,7 +1814,7 @@ def _wait(what: str, proc: subprocess.Popen, deadline: float) -> None:
     try:
         proc.wait(timeout=max(1.0, deadline - time.time()))
     except subprocess.TimeoutExpired:
-        raise AssertionError(f"{what}: the process ran past its time") from None
+        raise AssertionError(f"{what}: the process ran past its time limit") from None
 
 
 def _start_parity(names, out_dir: Path) -> dict:

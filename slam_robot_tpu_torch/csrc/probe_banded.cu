@@ -39,14 +39,13 @@
 // of an output row with one 16-byte store where K % 4 == 0 and the output
 // starts on 16 bytes (one element a thread otherwise), the row's lane,
 // fraction and start read once, every element built from the same
-// where-expressions as the JAX function, so the result is exact (it was one
-// element a thread in a grid-stride loop with 64-bit divisions).
+// where-expressions as the JAX function, so the result is exact.
 // probe_sample_grouped: the grouping only fed the MXU, so this kernel samples
-// directly: a block per lane (64 blocks at the probe's F, where four lanes a
-// block made 16), two outputs a thread ((a, j) and (a, j + S) of the lane's
-// [2S, 2S] output share their four taps and row pass), the taps read through
-// the L1 straight from the window, with no copy of it (the old kernel copied
-// all 32x32 pixels of a window, then took ~22 outputs a thread in turn).
+// directly: a block per lane (64 blocks at the probe's F: one per SM), two
+// outputs a thread ((a, j) and (a, j + S) of the lane's [2S, 2S] output
+// share their four taps and row pass), the taps read through the L1
+// straight from the window: only the (S+1) x (S+1) pixels the taps reach,
+// with no copy of the window and no barrier.
 // Rows first (value or d/dy), then columns (value or d/dx), each product and
 // sum rounded on its own (__fmul_rn, __fadd_rn: no contraction into FMAs),
 // which is the plain version's arithmetic; the output is the lane's [[V,

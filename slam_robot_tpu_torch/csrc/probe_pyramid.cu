@@ -45,9 +45,9 @@
 // - level 1, horizontal, as level 0's: 4 outputs a thread from two 16-byte
 //   shared loads (the virtual columns are reflected at W/2), one 16-byte
 //   store where W/2 % 4 == 0.
-// Four barriers where the old design took six, no division but by
-// constants, and each stage's reflection at its own size (H x W for l0 and
-// d, H/2 x W/2 for l1), so the result is the plain chain's for any taps.
+// Four barriers, no division but by constants, and each stage's reflection
+// at its own size (H x W for l0 and d, H/2 x W/2 for l1), so the result is
+// the plain chain's for any taps.
 // Slots past the image hold clamped values that no stored output reads. H
 // and W are even (as the probe's reshape requires) and H/2, W/2 >= 3.
 #include <cstdint>

@@ -642,8 +642,8 @@ def trace_scan(ps, imgs: torch.Tensor, cfg: SlamConfig, dev: torch.device,
 # reading of the export, in a process of its own beside the busy shares of
 # ``busy`` (bench_suite.busy_works); then "cg", the config-5 tools of ``cg``
 # (profile_cg in each layout, then profile_cg_sharded) in a second fresh
-# process, whose first capture is config 5's: late in the first process the
-# config-5 captures lost their first kernels (PR 14's runs of the smoke)
+# process, whose first capture is config 5's: late in one process the
+# config-5 captures were seen to lose their first kernels in every take
 JOB_FILE, RESULT_FILE, STATE_FILE, FRAMES_FILE = "job.json", "result.json", "state.pt", "frames.pt"
 DETAIL_FILE = "detail.json"
 PARTS = ("trace", "cg")

@@ -48,14 +48,18 @@ def test_the_smoke_s_parity_processes_fail_without_a_report(tmp_path):
     """chip_smoke.py's phase 9 runs each sequence in a process of its own:
     one that exits with no report fails the phase with its log's end (here
     an unknown sequence)."""
-    with pytest.raises(AssertionError, match="no_such_sequence: the replay exited 1 with no "
-                                             "report(.|\\n)*KeyError"):
-        chip_smoke._parity_reports(["no_such_sequence"], tmp_path, 120)
+    procs = chip_smoke._start_parity(["no_such_sequence"], tmp_path)
+    try:
+        with pytest.raises(AssertionError, match="no_such_sequence: the replay exited 1 with no "
+                                                 "report(.|\\n)*KeyError"):
+            chip_smoke._parity_reports(procs, tmp_path, time.time() + 120)
+    finally:
+        chip_smoke._stop(procs)
 
 
 def test_the_smoke_s_parity_processes_are_ended_at_their_time_limit(tmp_path, monkeypatch):
     """A parity process that runs past the phase's limit fails it, and the
-    phase ends every process it started."""
+    smoke ends every process it started (as its main does, in a finally)."""
     started = []
     popen = chip_smoke.subprocess.Popen
 
@@ -65,7 +69,11 @@ def test_the_smoke_s_parity_processes_are_ended_at_their_time_limit(tmp_path, mo
 
     monkeypatch.setattr(chip_smoke.subprocess, "Popen", record)
     t0 = time.time()
-    with pytest.raises(AssertionError, match="forward_yaw: the replay ran past 0.5 s"):
-        chip_smoke._parity_reports(["forward_yaw", "long_forward"], tmp_path, 0.5)
+    procs = chip_smoke._start_parity(["forward_yaw", "long_forward"], tmp_path)
+    with pytest.raises(AssertionError, match="forward_yaw: the process ran past its time limit"):
+        try:
+            chip_smoke._parity_reports(procs, tmp_path, time.time() + 0.5)
+        finally:
+            chip_smoke._stop(procs)
     assert time.time() - t0 < 30
     assert len(started) == 2 and all(p.poll() is not None for p in started)

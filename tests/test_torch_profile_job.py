@@ -101,8 +101,8 @@ def test_the_job_runs_in_a_fresh_process(job):
 
 def test_the_config_5_tools_run_in_a_second_fresh_process(job):
     """Every capture's record: the trace's in the first process, the
-    config-5 tools' in the second, whose first session is profile_cg's
-    (session 0, nothing launched before it); each with its session's index
+    config-5 tools' in the second, whose first session is profile_cg's;
+    each with its session's index
     in its process, the launches before it, whether trace_detail's reader
     ran, and its audit's lost_at."""
     job_dir, _, _ = job
