@@ -171,9 +171,9 @@ Phases, one line each (phases 2 and 3 several):
      state equal to eager's bit for bit), profile_scan (default and noslam,
      one pass of 8 frames); then, in a fresh process (profile_trace
      --job --part trace: a long-lived process loses kernels from its
-     traces, ROADMAP C6), profile_trace over 2 frames (its traced pass first, which pays
+     traces, ROADMAP C6), profile_trace over 1 frame (its traced pass first, which pays
      for the process's first launches; device busy share, categories, top
-     kernels, host ms by span) and trace_detail on its export (2 frames
+     kernels, host ms by span) and trace_detail on its export (1 frame
      with the host's spans; python -m, beside the next two: B1's and B2's
      rows against the port's counters, and the launches that lost their
      kernel), the busy shares of phase 8's fleet (30 steps) and of phase
@@ -275,6 +275,11 @@ PARITY_TIMEOUT_S = 480
 # and the directory of their inputs, logs and reports
 PARTS_TIMEOUT_S = 720
 PARTS_DIR = Path(__file__).resolve().parent / "build" / "smoke_parts"
+# the nice value of the processes off the block's longest path (phase 9's
+# and phase 10's): the host's cores go first to this process and phase 12's,
+# whose CPU witnesses (config 5's solve, the trackers on the CPU) otherwise
+# share them with every other process's host loop
+PARTS_NICE = 10
 
 # phase 13: bench.py's warm frames and timed ones, seed 0 (seeds 1 and 2,
 # and the 64 timed frames, run in the standalone bench, python -m
@@ -1788,13 +1793,19 @@ def phase_parity_kernels() -> dict:
     return {"pyramid_flat": pyr, "newton_track": track}
 
 
-def _start(name: str, argv: list, out_dir: Path) -> subprocess.Popen:
+def _start(name: str, argv: list, out_dir: Path, nice: int = 0) -> subprocess.Popen:
     """``python argv`` from the checkout's root in a process group of its
-    own, its output to ``out_dir/NAME.log``."""
+    own, its output to ``out_dir/NAME.log``, at ``nice`` (set before it
+    starts a thread of its own: its threads inherit it)."""
+    import os
+
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / f"{name}.log", "w") as f:
-        return subprocess.Popen([sys.executable, *argv], stdout=f, stderr=subprocess.STDOUT,
+        proc = subprocess.Popen([sys.executable, *argv], stdout=f, stderr=subprocess.STDOUT,
                                 cwd=Path(__file__).resolve().parent, start_new_session=True)
+    if nice:
+        os.setpriority(os.PRIO_PROCESS, proc.pid, nice)
+    return proc
 
 
 def _stop(procs: dict) -> None:
@@ -1826,7 +1837,7 @@ def _start_parity(names, out_dir: Path) -> dict:
         (out_dir / f"{name}.json").unlink(missing_ok=True)
         procs[name] = _start(name, ["-m", "slam_robot_tpu_torch.tools.parity", "--seq", name,
                                     "--out", str(out_dir / f"{name}.json"), "--device", "cuda"],
-                             out_dir)
+                             out_dir, PARTS_NICE)
     return procs
 
 
@@ -1846,9 +1857,10 @@ def _parity_reports(procs: dict, out_dir: Path, deadline: float) -> dict:
     return reports
 
 
-# the phases that run_part runs in a process of its own, and the lines of
-# its output that the script prints as theirs
+# the phases that run_part runs in a process of its own, the lines of its
+# output that the script prints as theirs, and its nice value
 PARTS = {"knobs": "phase 10", "alt": "phase 12"}
+PART_NICE = {"knobs": PARTS_NICE, "alt": 0}
 
 
 def _write_part_inputs(frames, direct, serve_baseline: dict) -> None:
@@ -1870,7 +1882,8 @@ def _write_part_inputs(frames, direct, serve_baseline: dict) -> None:
 def _start_part(name: str) -> subprocess.Popen:
     """``python chip_smoke.py --part NAME`` (:func:`run_part`)."""
     (PARTS_DIR / f"{name}.json").unlink(missing_ok=True)
-    return _start(name, [str(Path(__file__).resolve()), "--part", name], PARTS_DIR)
+    return _start(name, [str(Path(__file__).resolve()), "--part", name], PARTS_DIR,
+                  PART_NICE[name])
 
 
 def _part_result(name: str, proc: subprocess.Popen, deadline: float) -> tuple:
@@ -2985,8 +2998,8 @@ def phase_bench(start, card: str):
 
 # phase 14: the profiling tools from phase 13's warm state, cut to size
 # (the script's time limit): frames probe_live runs a variant,
-# profile_scan times, profile_trace traces
-LIVE_FRAMES, SCAN_FRAMES, TRACE_FRAMES = 2, 8, 2
+# profile_scan times, profile_trace traces (and exports)
+LIVE_FRAMES, SCAN_FRAMES, TRACE_FRAMES = 2, 8, 1
 # seconds phase 14's fresh processes (profile_trace --job) may take together
 JOB_TIMEOUT_S = 600
 

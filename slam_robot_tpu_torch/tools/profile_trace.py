@@ -707,7 +707,11 @@ def do_job(job_dir: str, dev: torch.device, part: str) -> dict:
     from slam_robot_tpu_torch.tools import bench_suite, profile_cg
 
     t_part = time.perf_counter()
-    ps, imgs, cfg, job = read_job(job_dir, dev)
+    if part == "trace":
+        ps, imgs, cfg, job = read_job(job_dir, dev)
+    else:  # the config-5 tools take no state
+        with open(os.path.join(job_dir, JOB_FILE)) as f:
+            job = json.load(f)
     before = bench.counts()
     tools, result = {}, {}
     busy_opts, cg = job.get("busy"), job["cg"]

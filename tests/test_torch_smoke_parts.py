@@ -83,3 +83,18 @@ def test_the_part_inputs_round_trip(parts_dir):
     assert json.loads((parts_dir / "serve_baseline.json").read_text()) == {"n_points": 7,
                                                                             "n_obs": 9}
 
+
+
+def test_the_processes_off_the_longest_path_run_niced(parts_dir):
+    """Phase 9's and phase 10's processes run at PARTS_NICE, phase 12's at
+    the script's own priority: its process is the block's longest."""
+    import os
+
+    assert chip_smoke.PART_NICE == {"knobs": chip_smoke.PARTS_NICE, "alt": 0}
+    base = os.getpriority(os.PRIO_PROCESS, 0)
+    proc = chip_smoke._start("slow", ["-c", "import time; time.sleep(60)"], parts_dir,
+                             chip_smoke.PARTS_NICE)
+    try:
+        assert os.getpriority(os.PRIO_PROCESS, proc.pid) == min(base + chip_smoke.PARTS_NICE, 19)
+    finally:
+        chip_smoke._stop({"slow": proc})
