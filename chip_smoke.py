@@ -185,9 +185,10 @@ Phases, one line each (phases 2 and 3 several):
      against one, phase 11's tolerances, and the projection from the padded
      solve's rate); every capture's record printed (its process, session,
      tool, the launches before it, whether trace_detail ran, lost_at);
-     fails on a non-finite number, a busy share over 100 %
-     (by more than the profiler's time stamps, 200 ns a device operation),
-     any capture with a kernel launch whose kernel it lost (ROADMAP C6;
+     fails on a non-finite number, a profile whose device time is counted
+     twice on a stream or lies outside its run's markers (the profiled
+     pass's own events on the device's clock; the busy share against an
+     unprofiled wall is printed, not gated), any capture with a kernel launch whose kernel it lost (ROADMAP C6;
      the export's by trace_detail's audit, every other capture's by
      profile_trace.audit), B1's or B2's launches in the profile, or their
      rows in the export, other than the port's counters over the same
@@ -3014,24 +3015,50 @@ def _numbers(x, path="") -> list:
     return [(path, x)] if ok else []
 
 
-# the device time of a busy share comes from the profiled pass, whose
-# kernels CUPTI time-stamps, and its wall time from an unprofiled pass: when
-# the device is saturated (ba_cg at config 5) the two meet, and the stamps'
-# cost shows as a share over 100 % (100.07 %, 0.1 ms a GN iteration over
-# 2864 device operations, in a builder's run). The gate allows that much a
-# device operation, 0.4 % of config 5's solve, and no more
+# What phase 14 gates of a profile's device time: that it is not
+# over-counted, on the profiled pass's own events and on the clock of their
+# own time stamps (CUPTI's on the card; profile_trace.device_time), with no
+# allowance: (a) on each stream the summed time of its operations at most
+# the stream's span from its first start to its last end (a stream runs one
+# operation at a time), (b) every operation of the run inside the run's
+# window between the capture's markers (profile_trace.traced: the last lead
+# marker's end, the tail marker's start). The host's clock is no yardstick
+# for (b): at config 5 a device span ran 10.5 ms (0.87 %) past the same
+# run's wall on the host's clock, beyond what the run could hold, so the two
+# clocks part within a run; the host's wall is printed beside it. A busy
+# share holds the profiled pass's device time against an unprofiled pass's
+# wall: at config 5 the device is saturated and that wall moves by ~2 % from
+# run to run, so the share landed on either side of 100 % by host noise.
+# The share stays a printed figure, beside the limit it was once gated by:
+# 100 % plus CUPTI_NS_PER_OP a device operation for the stamps' cost
 CUPTI_NS_PER_OP = 200
 
 
 def _gate_profile(name: str, p: dict) -> None:
-    """A profile's busy share at most 100 % (beyond the profiler's own
-    time stamps, CUPTI_NS_PER_OP a device operation), its capture complete
+    """A profile's device time not over-counted (the invariants (a) and (b)
+    above, on ``p["device_time"]``), its capture complete
     (``_gate_capture``), and in the trace B1's and B2's launches (where the
-    run made any) equal to the port's counters."""
-    stamps_ms = CUPTI_NS_PER_OP * 1e-6 * p["device_ops"] / p["units"]
-    if not p["device_ms"] <= p["wall_ms"] + stamps_ms:
-        raise AssertionError(f"{name}: device busy share {p['busy_share']:.4f} over 100 % "
-                             f"by more than the profiler's stamps ({stamps_ms:.3f} ms a unit)")
+    run made any) equal to the port's counters. Prints the invariants, the
+    host's wall and the busy share against the unprofiled wall first."""
+    t = p["device_time"]
+    old_limit = 1.0 + CUPTI_NS_PER_OP * 1e-6 * p["device_ops"] / p["units"] / p["wall_ms"]
+    window = t["window"]
+    inside = window is not None and t["streams"] and \
+        window[0] <= t["first_ns"] and t["last_ns"] <= window[1]
+    streams = {k: [s["ops"], s["busy_ns"], s["span_ns"]] for k, s in t["streams"].items()}
+    print(f"phase 14 {name} device time: by stream [ops, busy ns, span ns] "
+          f"{json.dumps(streams)}; operations [{t['first_ns']}, {t['last_ns']}] inside the "
+          f"markers' window {window}: {bool(inside)} (span {t['span_ns']} ns, window "
+          f"{t['window_ns']} ns on the device's clock, the run's wall {t['run_ns']} ns on the "
+          f"host's); busy share against the unprofiled wall {p['busy_share']:.6f} (not gated; "
+          f"the stamps' limit {old_limit:.6f})", flush=True)
+    for stream, s in t["streams"].items():
+        if not s["busy_ns"] <= s["span_ns"]:
+            raise AssertionError(f"{name}: stream {stream}'s operations sum to {s['busy_ns']} ns "
+                                 f"over its span of {s['span_ns']} ns: device time counted twice")
+    if not inside:
+        raise AssertionError(f"{name}: the run's operations [{t['first_ns']}, {t['last_ns']}] "
+                             f"are not inside its markers' window {window} on the device's clock")
     _gate_capture(name, p["audit"])
     if p["traced_launches"] != p["counted_launches"]:
         rows = {k: v for k, v in p["counts"].items() if "track" in k or "pyramid" in k}

@@ -199,7 +199,9 @@ MARK = "capture_mark"
 # markers launched back to back before a traced run; the run starts after
 # the last one the capture kept. A capture's first kernel was seen lost on
 # the card (profile_cg's padded solve lost its one start marker in three
-# takes running), and a lost marker before a kept one costs nothing
+# takes running), and a lost marker before a kept one costs nothing. One
+# more marker, the capture's last launch, closes the run: the two bound the
+# run on the device's own clock
 LEAD_MARKS = 3
 
 
@@ -263,11 +265,30 @@ def mark(dev: torch.device) -> None:
             pass
 
 
+def _is_mark(e, dev: torch.device) -> bool:
+    return "spin_kernel" in e.name() if dev.type == "cuda" else e.name() == MARK
+
+
 def marks(events, dev: torch.device) -> list:
     """The correlation ids of the capture's markers, in order."""
+    return sorted(e.correlation_id() for e in events if _is_mark(e, dev))
+
+
+def run_bounds(events, dev: torch.device) -> tuple | None:
+    """The marker events around :func:`traced`'s run: the last of its lead
+    markers that the capture kept and its tail marker; None where the
+    capture kept no lead marker or lost the tail one (on the card the
+    capture's last kernel launch)."""
+    found = marks(events, dev)
+    if len(found) < 2:
+        return None
     if dev.type == "cuda":
-        return sorted(e.correlation_id() for e in events if "spin_kernel" in e.name())
-    return sorted(e.correlation_id() for e in events if e.name() == MARK)
+        last = max((e.correlation_id() for e in events if "LaunchKernel" in e.name()),
+                   default=None)
+        if found[-1] != last:
+            return None
+    by_corr = {e.correlation_id(): e for e in events if _is_mark(e, dev)}
+    return by_corr[found[-2]], by_corr[found[-1]]
 
 
 def traced(run, dev: torch.device, activities):
@@ -275,9 +296,12 @@ def traced(run, dev: torch.device, activities):
     first, discarded step (a few small launches), and the run sits
     :data:`LEAD_S` after the traced window's start and :data:`TAIL_S`
     before its end, :data:`LEAD_MARKS` markers (:func:`mark`) launched just
-    before it: the window may hold the host's record of a warm-up launch
-    whose kernel ran before it, or lose its first kernel, and
-    :func:`run_events` leaves out what precedes the last marker kept."""
+    before it and one just after it: the window may hold the host's record
+    of a warm-up launch whose kernel ran before it, or lose its first
+    kernel, and :func:`run_events` leaves out what precedes the last lead
+    marker kept. The profiler's ``run_ns`` is the run's wall on the host's
+    clock, from after the lead markers' launches to the device's end of the
+    run and its tail marker."""
     CAPTURES.open()
     warm = torch.zeros(8, device=dev)
     with torch.profiler.profile(activities=activities,
@@ -290,28 +314,34 @@ def traced(run, dev: torch.device, activities):
         time.sleep(LEAD_S)
         for _ in range(LEAD_MARKS):
             mark(dev)
+        t0 = time.perf_counter_ns()
         run()
+        mark(dev)
         profiling.sync(dev)
+        prof.run_ns = time.perf_counter_ns() - t0
         time.sleep(TAIL_S)
         prof.step()
     return prof
 
 
 def run_events(prof, dev: torch.device) -> list | None:
-    """The events of :func:`traced`'s run: those after the last of its
+    """The events of :func:`traced`'s run: those between the last of its
     lead markers that the capture kept (a later one that it lost is a lost
-    launch of the run); None when it kept none."""
+    launch of the run) and its tail marker (:func:`run_bounds`); None when
+    the capture kept no lead marker or lost the tail one."""
     events = capture_events(prof)
-    found = marks(events, dev)
-    if not found:
+    bounds = run_bounds(events, dev)
+    if bounds is None:
         return None
-    return [e for e in events if e.correlation_id() > found[-1]]
+    lead, tail = (b.correlation_id() for b in bounds)
+    return [e for e in events if lead < e.correlation_id() < tail]
 
 
 def run_audit(prof, dev: torch.device) -> dict:
     """The :func:`audit` of :func:`traced`'s run (:func:`run_events`). A
-    capture that lost every lead marker's kernel has lost kernels too: its
-    audit is the whole capture's, with ``lost_markers``."""
+    capture that lost every lead marker's kernel, or the tail marker's, has
+    lost kernels too: its audit is the whole capture's, with
+    ``lost_markers``."""
     events = run_events(prof, dev)
     if events is None:
         a = dict(audit(capture_events(prof)), lost_markers=LEAD_MARKS)
@@ -333,6 +363,46 @@ def _is_device(e) -> bool:
     """A capture event that is the device's work (a kernel, copy or set;
     not the device-side copy of a ``record_function`` span)."""
     return e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()
+
+
+def device_time(ops, window: tuple | None, run_ns: int) -> dict:
+    """How the device's time in ``ops`` (capture events: ``start_ns()``,
+    ``duration_ns()`` and the stream, ``device_resource_id()``) lies against
+    itself and against the run that made it, on the clock of the capture's
+    own time stamps: per stream its operations, their summed time
+    (``busy_ns``) and its span from the first one's start to the last one's
+    end (``span_ns``); across streams the first start and the last end
+    (``first_ns``, ``last_ns``, ``span_ns``), beside the run's ``window``
+    (start, end) between :func:`traced`'s markers (:func:`run_bounds`: the
+    last lead marker's end, the tail marker's start; None where unknown) and
+    the run's host wall ``run_ns``. On the card a stream runs one operation
+    at a time, so a stream's summed time over its span counts something
+    twice, and an operation outside the window is not the run's
+    (``chip_smoke._gate_profile`` fails both). On the CPU the operations are
+    operators, nested ones within each enclosing one: figures for the tests.
+    Times in ns, spans also in ms."""
+    streams, first, last = {}, None, None
+    for e in ops:
+        start = e.start_ns()
+        end = start + e.duration_ns()
+        s = streams.setdefault(str(e.device_resource_id()),
+                               {"ops": 0, "busy_ns": 0, "first_ns": start, "last_ns": end})
+        s["ops"] += 1
+        s["busy_ns"] += e.duration_ns()
+        s["first_ns"], s["last_ns"] = min(s["first_ns"], start), max(s["last_ns"], end)
+        first = start if first is None else min(first, start)
+        last = end if last is None else max(last, end)
+    out = {}
+    for k, s in sorted(streams.items()):
+        span = s["last_ns"] - s["first_ns"]
+        out[k] = {"ops": s["ops"], "busy_ns": s["busy_ns"], "span_ns": span,
+                  "busy_ms": s["busy_ns"] / 1e6, "span_ms": span / 1e6}
+    span = 0 if first is None else last - first
+    window_ns = None if window is None else window[1] - window[0]
+    return {"streams": out, "first_ns": first, "last_ns": last, "span_ns": span,
+            "window": None if window is None else list(window), "window_ns": window_ns,
+            "run_ns": run_ns, "span_ms": span / 1e6,
+            "window_ms": None if window is None else window_ns / 1e6, "run_ms": run_ns / 1e6}
 
 
 def audit(events) -> dict:
@@ -416,15 +486,16 @@ def _busy_session(works: dict, dev: torch.device) -> dict:
     acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
 
     def all_works():  # the last of traced's lead markers opens the first work
-        for run in works.values():
+        for i, run in enumerate(works.values()):
+            if i:
+                mark(dev)
             run()
-            mark(dev)
 
     events = capture_events(traced(all_works, dev, acts))
     found = marks(events, dev)
     n = len(works)
-    # the last n markers close the works and the one before them opens the
-    # first. A lost marker after that start would shift the split and is a
+    # the last n markers close the works (traced's tail marker the last)
+    # and the one before them opens the first. A lost marker after that start would shift the split and is a
     # lost launch there: then, as when too few markers are left, no work's
     # bounds are known, and every work's capture is faulty (audit_fault)
     lost_markers = max(0, n + 1 - len(found))
@@ -469,9 +540,11 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
     frames or iterations in one ``run``): wall ms, device ms, busy share,
     device ms by category, the ``top`` device rows, host ms by span, the
     launches of B1 and B2 in the trace and by the port's counters, the
-    profiled pass's wall ms, every device row's count (``counts``), the
-    capture's :func:`audit` and its ``retakes`` (:func:`retaken`: a capture
-    that lost a kernel is taken again).
+    profiled run's wall ms (:func:`traced`'s ``run_ns``), every device
+    row's count (``counts``), the capture's :func:`audit` and its
+    ``retakes`` (:func:`retaken`: a capture that lost a kernel is taken
+    again), and the profiled run's :func:`device_time` (the whole run's,
+    not a unit's).
 
     The traced pass comes first: in a fresh process it pays for the first
     launches (each kernel loads on its first one), which would slow an
@@ -492,14 +565,21 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
 
     def take():
         before = bench.counts()
-        t0 = time.perf_counter()
         prof = traced(run, dev, acts)
-        profiled_ms = 1e3 * (time.perf_counter() - t0 - LEAD_S - TAIL_S)
         counters = {k: v - before[k] for k, v in bench.counts().items()}
-        return prof, profiled_ms, counters, run_audit(prof, dev)
+        return prof, counters, run_audit(prof, dev)
 
-    (prof, profiled_ms, counters, captured), retakes = retaken(
-        take, lambda got: audit_fault(got[3]))
+    (prof, counters, captured), retakes = retaken(take, lambda got: audit_fault(got[2]))
+    events = capture_events(prof)
+    bounds = run_bounds(events, dev)
+    window, ops = None, []
+    if bounds is not None:
+        lead, tail = bounds
+        window = (lead.start_ns() + lead.duration_ns(), tail.start_ns())
+        ops = [e for e in events if lead.correlation_id() < e.correlation_id() <
+               tail.correlation_id() and (_is_device(e) if dev.type == "cuda"
+                                          else not e.is_user_annotation())]
+    timing = device_time(ops, window, prof.run_ns)
     with SpanTimer() as spans:
         t0 = time.perf_counter()
         run()
@@ -516,7 +596,8 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
         in_trace[category(name)] += count
     rows.sort(key=lambda r: -r[2])
     out = {
-        "units": n_units, "wall_ms": wall_ms / n_units, "profiled_wall_ms": profiled_ms / n_units,
+        "units": n_units, "wall_ms": wall_ms / n_units,
+        "profiled_wall_ms": timing["run_ms"] / n_units, "device_time": timing,
         "device_ms": total_us / 1e3 / n_units, "busy_share": total_us / 1e3 / wall_ms,
         "by_category_ms": {k: v / 1e3 / n_units for k, v in cats.items()},
         "top": [{"us_total": us, "us_per_unit": us / n_units, "count": n, "name": name,
@@ -567,6 +648,13 @@ def report(p: dict, unit: str, emit=print) -> None:
     emit(f"device busy share: {100 * p['busy_share']:.2f} % of the unprofiled "
          f"{p['wall_ms']:.2f} ms/{unit} (profiled pass {p['profiled_wall_ms']:.2f} ms/{unit}); "
          f"{p['device_ops'] / n:.1f} device ops/{unit}")
+    t = p["device_time"]
+    streams = {k: [s["ops"], round(s["busy_ms"], 3), round(s["span_ms"], 3)]
+               for k, s in t["streams"].items()}
+    window = "unknown" if t["window"] is None else f"{t['window_ms']:.3f} ms"
+    emit(f"profiled run: device span {t['span_ms']:.3f} ms, its markers {window} apart on the "
+         f"device, the run's host wall {t['run_ms']:.3f} ms; by stream [ops, busy ms, span ms] "
+         f"{json.dumps(streams)}")
     emit(f"\n-- by category (ms/{unit}) --")
     for k, v in sorted(p["by_category_ms"].items(), key=lambda kv: -kv[1]):
         emit(f"{k:40s} {v:8.3f}")

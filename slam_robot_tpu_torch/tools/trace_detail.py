@@ -154,9 +154,12 @@ def read(path: str) -> tuple[list, dict]:
         r["us"] += e.get("dur", 0)
         r["spans"][inner] += 1
     # the run starts after the last of profile_trace.traced's lead marker
-    # kernels that the trace kept; a launch before it is the warm-up step's
-    # (whose kernel ran before the window) or a lead marker's
-    start = max((corr for e, corr, _ in done if "spin_kernel" in e["name"]), default=None)
+    # kernels that the trace kept (its tail marker, the trace's last launch,
+    # follows the run); a launch before it is the warm-up step's (whose
+    # kernel ran before the window) or a lead marker's
+    tail = max(kernel_launches, default=None)
+    start = max((corr for e, corr, _ in done if "spin_kernel" in e["name"] and corr != tail),
+                default=None)
     lost = collections.Counter(span for corr, (span, _) in kernel_launches.items()
                                if corr not in kernel_corrs and (start is None or corr > start))
     audit = {"kernel_launches": len(kernel_launches), "lost_launches": sum(lost.values()),

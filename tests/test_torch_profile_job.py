@@ -198,7 +198,7 @@ def test_a_capture_that_lost_every_lead_marker_is_taken_again(monkeypatch):
     x = torch.ones(64)
     prof = profile_trace.traced(lambda: x.mul(3.0), CPU, [torch.profiler.ProfilerActivity.CPU])
     assert len(profile_trace.marks(profile_trace.capture_events(prof), CPU)) == \
-        profile_trace.LEAD_MARKS
+        profile_trace.LEAD_MARKS + 1  # and the tail marker after the run
     real = profile_trace.marks
     monkeypatch.setattr(profile_trace, "marks", lambda events, dev: [])
     assert profile_trace.run_events(prof, CPU) is None
