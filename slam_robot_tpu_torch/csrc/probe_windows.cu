@@ -13,7 +13,21 @@
 //
 // Design. A window start is clamped so the window fits the image, as
 // lax.dynamic_slice clamps (and so a position never reads out of bounds).
-// probe_windows: one block per lane, threads striding over the window.
+// probe_windows: a time is its critical path, so at most one dependent load
+// precedes the image's. A warp reads its lane's position once (two lanes,
+// one request) and takes it by shuffle, with no barrier; MASKED loads its
+// mask beside the image (the image's address does not depend on it) and
+// selects after both arrive; ROWS reads no x. A thread holds V adjacent
+// columns of a row (V = 4 where ws % 4 == 0 and the output is on 16 bytes:
+// four scalar loads, since a window starts at any column, and one 16-byte
+// store; else V = 1), a row's threads side by side, so each load over a
+// warp reads what one contiguous row read would; a warp holds 32 / tpr
+// rows, and a thread issues all its loads (kWinRows row slices) before its
+// first store. The indices are set up once, with no division an element.
+// At the probes' F = 8 and ws = 32 a lane spreads over 2 blocks of
+// kWinWarps = 4 warps, a row a thread (16 blocks): by graph on an H100 it
+// beat a block of 8 warps a lane by ~0.0001 ms, and 4 or 8 blocks of 2 or 1
+// warps a lane by up to 0.00005 (PERF.md).
 // probe_fill: the positions' column 0, scaled, is staged in shared memory and
 // one of its entries fills the output.
 //
@@ -48,6 +62,7 @@
 // more than kMaxSmem of shared memory.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -56,7 +71,9 @@ enum WindowCase { kInt = 0, kFloored = 1, kRows = 2, kMasked = 3, kDiagonal = 4 
 enum AsyncCase { kOneByOne = 0, kAllThenWait = 1, kStaged = 2 };
 enum AsyncRoute { kCpAsync = 0, kBulk = 1 };
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;          // threads a block of probe_fill
+constexpr int kWinWarps = 4;           // warps a block of probe_windows
+constexpr int kWinRows = 1;            // row slices a thread of probe_windows holds
 constexpr int kStaticSmem = 48 * 1024;
 constexpr int kAsyncThreads = 128;     // threads a block of probe_windows_async
 constexpr int kSlotAlign = 128;        // bytes; a slot's alignment
@@ -66,38 +83,105 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-__global__ void windows_kernel(const float* __restrict__ img,
-                               const void* __restrict__ pos,
-                               const int* __restrict__ mask,
-                               float* __restrict__ out, int H, int W, int ws,
-                               int mode) {
+// V adjacent floats of a window row: loaded from any column (V scalar
+// loads), stored to `dst` (on 16 bytes where V == 4: one store).
+template <int V>
+struct Cols;
+
+template <>
+struct Cols<1> {
+  float v;
+  __device__ __forceinline__ void load(const float* src) { v = src[0]; }
+  __device__ __forceinline__ void scale(bool keep) { v = keep ? v * 2.0f : 0.0f; }
+  __device__ __forceinline__ void store(float* dst) const { dst[0] = v; }
+};
+
+template <>
+struct Cols<4> {
+  float4 v;
+  __device__ __forceinline__ void load(const float* src) {
+    v = make_float4(src[0], src[1], src[2], src[3]);
+  }
+  __device__ __forceinline__ void scale(bool keep) {
+    v = keep ? make_float4(v.x * 2.0f, v.y * 2.0f, v.z * 2.0f, v.w * 2.0f)
+             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __device__ __forceinline__ void store(float* dst) const { *reinterpret_cast<float4*>(dst) = v; }
+};
+
+// A block of kWinWarps warps copies kWinRows row slices a thread of lane
+// blockIdx.x's window, from row blockIdx.y * (rows a block). A row's tpr
+// threads (tpr = min(32, ws / V)) hold V adjacent columns each, so a warp
+// holds 32 / tpr rows. Every load of a thread is issued before its first
+// store; the indices are set up once, with no per-element division.
+template <int kMode, int V>
+__global__ void __launch_bounds__(kWinWarps * 32)
+    windows_kernel(const float* __restrict__ img, const void* __restrict__ pos,
+                   const int* __restrict__ mask, float* __restrict__ out, int H, int W, int ws,
+                   int tpr) {
   const int f = blockIdx.x;
-  const int n = ws * ws;
-  float* o = out + static_cast<size_t>(f) * n;
-  if (mode == kMasked) {
-    // out[f] = 2 * img[0:ws, 0:ws] where mask[f] > 0, else 0
-    const bool keep = mask[f] > 0;
-    for (int e = threadIdx.x; e < n; e += blockDim.x) {
-      o[e] = keep ? img[(e / ws) * W + e % ws] * 2.0f : 0.0f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rpw = 32 / tpr;  // rows a warp
+  const int sub = lane / tpr;
+  const int col0 = (lane - sub * tpr) * V;
+  const int row_step = kWinWarps * rpw;
+  const int r0 = blockIdx.y * row_step * kWinRows + warp * rpw + sub;
+  const bool active = sub < rpw;
+  // MASKED: the image's address does not depend on the mask, so the mask's
+  // load (one request a warp) is in flight with the image's
+  bool keep = true;
+  if (kMode == kMasked) keep = mask[f] > 0;
+  int x = 0, y = 0;
+  if (kMode != kMasked) {
+    // the lane's start: lanes 0 and 1 read x and y in one request, the
+    // warp takes them by shuffle (ROWS reads no x)
+    int v = 0;
+    if (lane < 2 && !(kMode == kRows && lane == 0)) {
+      const int idx = kMode == kDiagonal ? 0 : 2 * f + lane;
+      v = kMode == kFloored ? static_cast<int>(floorf(static_cast<const float*>(pos)[idx]))
+                            : static_cast<const int*>(pos)[idx];
     }
-    return;
+    x = clampi(__shfl_sync(0xffffffffu, v, 0), 0, W - ws);
+    y = clampi(__shfl_sync(0xffffffffu, v, 1), 0, H - ws);
   }
-  int x, y;
-  if (mode == kFloored) {
-    const float* p = static_cast<const float*>(pos);
-    x = static_cast<int>(floorf(p[2 * f]));
-    y = static_cast<int>(floorf(p[2 * f + 1]));
-  } else {
-    const int* p = static_cast<const int*>(pos);
-    x = p[2 * f];
-    y = mode == kDiagonal ? p[0] : p[2 * f + 1];
-    if (mode == kRows) x = 0;
+  if (!active) return;
+  const float* src = img + static_cast<size_t>(y) * W + x;
+  float* dst = out + static_cast<size_t>(f) * ws * ws;
+  for (int c = col0; c < ws; c += tpr * V) {  // one pass where ws <= 32 V
+    Cols<V> v[kWinRows];
+#pragma unroll
+    for (int i = 0; i < kWinRows; ++i) {
+      const int r = r0 + i * row_step;
+      if (r < ws) v[i].load(src + static_cast<size_t>(r) * W + c);
+    }
+#pragma unroll
+    for (int i = 0; i < kWinRows; ++i) {
+      const int r = r0 + i * row_step;
+      if (r < ws) {
+        if (kMode == kMasked) v[i].scale(keep);
+        v[i].store(dst + static_cast<size_t>(r) * ws + c);
+      }
+    }
   }
-  x = clampi(x, 0, W - ws);
-  y = clampi(y, 0, H - ws);
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    o[e] = img[(y + e / ws) * W + x + e % ws];
-  }
+}
+
+template <int kMode>
+int launch_windows(const void* img, const void* pos, const void* mask, void* out, int H, int W,
+                   int F, int ws, cudaStream_t s) {
+  // 16-byte stores where every output row starts on 16 bytes
+  const bool vec = ws % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int V = vec ? 4 : 1;
+  const int tpr = std::min(32, ws / V);
+  const int rows = kWinWarps * (32 / tpr) * kWinRows;  // a block's
+  const dim3 grid(kMode == kDiagonal ? 1 : F, (ws + rows - 1) / rows);
+  const auto* im = static_cast<const float*>(img);
+  const auto* m = static_cast<const int*>(mask);
+  auto* o = static_cast<float*>(out);
+  if (vec)
+    windows_kernel<kMode, 4><<<grid, kWinWarps * 32, 0, s>>>(im, pos, m, o, H, W, ws, tpr);
+  else
+    windows_kernel<kMode, 1><<<grid, kWinWarps * 32, 0, s>>>(im, pos, m, o, H, W, ws, tpr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -359,11 +443,19 @@ extern "C" int probe_windows(const void* img, const void* pos, const void* mask,
                              void* stream) {
   if (ws <= 0 || ws > H || ws > W || F <= 0 || mode < kInt || mode > kDiagonal)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = mode == kDiagonal ? 1 : F;
-  windows_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), pos, static_cast<const int*>(mask),
-      static_cast<float*>(out), H, W, ws, mode);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kInt:
+      return launch_windows<kInt>(img, pos, mask, out, H, W, F, ws, s);
+    case kFloored:
+      return launch_windows<kFloored>(img, pos, mask, out, H, W, F, ws, s);
+    case kRows:
+      return launch_windows<kRows>(img, pos, mask, out, H, W, F, ws, s);
+    case kMasked:
+      return launch_windows<kMasked>(img, pos, mask, out, H, W, F, ws, s);
+    default:
+      return launch_windows<kDiagonal>(img, pos, mask, out, H, W, F, ws, s);
+  }
 }
 
 // The route of probe_windows_async for an image `W` floats wide at `img`.
