@@ -26,7 +26,13 @@
 // (rows past W read 0, as the band's zeros do):
 //   g = (2y sum(P D), sum(P^2)),  H = [[2y sum(D^2), 2 sum(P D)],
 //                                      [2 sum(P D), 0]],
-// three sums taken by one warp. probe_layout: one kernel per case, with
+// three sums. The window does not depend on x, so a block of kBandThreads
+// stages all of it in shared memory (16-byte loads where it lies on 16
+// bytes, kBandStage a thread in flight) while xy is read, and the band
+// waits on one load's latency and one barrier, not on xy's and then the
+// window's; static shared memory up to a 64-wide window, dynamic above it,
+// and the entry point refuses a window past the card's 227 KB a block.
+// probe_layout: one kernel per case, with
 // 32-bit index arithmetic (the entry point refuses 2^31 elements or more):
 // one thread per output element of a repeat (g1), an iota-masked sum (g4)
 // or a per-lane block transpose (g5); the broadcast (g2) copies 16 bytes a
@@ -69,6 +75,11 @@ constexpr int kLayoutThreads = 128;  // a block of probe_layout's one-element ke
 constexpr int kCopyThreads = 256;    // a block of probe_layout's 16-byte broadcast
 constexpr int kPairThreads = 256;   // a block of probe_banded_pair
 constexpr int kWin = 32;            // max window edge of probe_sample_grouped
+constexpr int kBandThreads = 256;   // a block of probe_band_grad
+constexpr int kBandStage = 4;       // loads a thread of probe_band_grad has in flight
+constexpr int kBandStatic = 64;     // window sides probe_band_grad stages in static memory
+// shared memory a block may take (the H100's 227 KB), less the static sums
+constexpr long long kBandMaxSmem = 232448 - 1024;
 
 __global__ void __launch_bounds__(kBmmWarps * 32)
     bmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
@@ -102,36 +113,97 @@ __global__ void __launch_bounds__(kBmmWarps * 32)
   }
 }
 
-__global__ void band_grad_kernel(const float* __restrict__ win,
-                                 const float* __restrict__ xy,
-                                 float* __restrict__ out, int WS, int S) {
-  const int t = threadIdx.x;
+// The window staged in shared memory (kDynamic: dynamic shared memory, for
+// windows over kBandStatic on a side) while every thread reads xy (one
+// request a warp, in flight beside the window's loads), one barrier, then
+// the band from shared memory: a thread a column, the S rows over the
+// block's warps, rows past W read as 0; the three sums by warp and one
+// shared step across the warps.
+template <bool kDynamic>
+__global__ void __launch_bounds__(kBandThreads)
+    band_grad_kernel(const float* __restrict__ win, const float* __restrict__ xy,
+                     float* __restrict__ out, int WS, int S, bool vec) {
+  __shared__ __align__(16) float s_static[kDynamic ? 1 : kBandStatic * kBandStatic];
+  extern __shared__ __align__(16) float s_dynamic[];
+  float* s_win = kDynamic ? s_dynamic : s_static;
+  __shared__ float s_part[3][kBandThreads / 32];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const float x = xy[0], y = xy[1];
+  const int n = WS * WS;
+  if (vec) {  // the window on 16 bytes: a float4 a load
+    const float4* w4 = reinterpret_cast<const float4*>(win);
+    float4* s4 = reinterpret_cast<float4*>(s_win);
+    for (int e0 = 0; e0 < n / 4; e0 += kBandThreads * kBandStage) {
+      float4 v[kBandStage];
+#pragma unroll
+      for (int k = 0; k < kBandStage; ++k) {
+        const int e = e0 + k * kBandThreads + t;
+        if (e < n / 4) v[k] = w4[e];
+      }
+#pragma unroll
+      for (int k = 0; k < kBandStage; ++k) {
+        const int e = e0 + k * kBandThreads + t;
+        if (e < n / 4) s4[e] = v[k];
+      }
+    }
+  } else {
+    for (int e0 = 0; e0 < n; e0 += kBandThreads * kBandStage) {
+      float v[kBandStage];
+#pragma unroll
+      for (int k = 0; k < kBandStage; ++k) {
+        const int e = e0 + k * kBandThreads + t;
+        if (e < n) v[k] = win[e];
+      }
+#pragma unroll
+      for (int k = 0; k < kBandStage; ++k) {
+        const int e = e0 + k * kBandThreads + t;
+        if (e < n) s_win[e] = v[k];
+      }
+    }
+  }
   const float x0f = floorf(x);
   const float fx = x - x0f;
   const int x0 = static_cast<int>(x0f);
+  __syncthreads();
   float spp = 0.0f, spd = 0.0f, sdd = 0.0f;
-  for (int e = t; e < S * WS; e += 32) {
-    const int i = e / WS, j = e % WS;
-    const int k0 = i + x0, k1 = i + x0 + 1;
-    const float w0 = (k0 >= 0 && k0 < WS) ? win[k0 * WS + j] : 0.0f;
-    const float w1 = (k1 >= 0 && k1 < WS) ? win[k1 * WS + j] : 0.0f;
-    const float p = (1.0f - fx) * w0 + fx * w1;
-    const float d = w1 - w0;
-    spp += p * p;
-    spd += p * d;
-    sdd += d * d;
+  for (int i = warp; i < S; i += kBandThreads / 32) {
+    const int k0 = i + x0, k1 = k0 + 1;
+    const bool in0 = k0 >= 0 && k0 < WS, in1 = k1 >= 0 && k1 < WS;
+    for (int j = lane; j < WS; j += 32) {
+      const float w0 = in0 ? s_win[k0 * WS + j] : 0.0f;
+      const float w1 = in1 ? s_win[k1 * WS + j] : 0.0f;
+      const float p = (1.0f - fx) * w0 + fx * w1;
+      const float d = w1 - w0;
+      spp += p * p;
+      spd += p * d;
+      sdd += d * d;
+    }
   }
   spp = warp_sum(spp);
   spd = warp_sum(spd);
   sdd = warp_sum(sdd);
-  if (t == 0) {
-    out[0] = 2.0f * y * spd;  // ds/dx
-    out[1] = spp;             // ds/dy
-    out[2] = 2.0f * y * sdd;  // d2s/dx2
-    out[3] = 2.0f * spd;      // d2s/dxdy
-    out[4] = 2.0f * spd;      // d2s/dydx
-    out[5] = 0.0f;            // d2s/dy2
+  if (lane == 0) {
+    s_part[0][warp] = spp;
+    s_part[1][warp] = spd;
+    s_part[2][warp] = sdd;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    constexpr int kWarps = kBandThreads / 32;
+    spp = lane < kWarps ? s_part[0][lane] : 0.0f;
+    spd = lane < kWarps ? s_part[1][lane] : 0.0f;
+    sdd = lane < kWarps ? s_part[2][lane] : 0.0f;
+    spp = warp_sum(spp);
+    spd = warp_sum(spd);
+    sdd = warp_sum(sdd);
+    if (lane == 0) {
+      out[0] = 2.0f * y * spd;  // ds/dx
+      out[1] = spp;             // ds/dy
+      out[2] = 2.0f * y * sdd;  // d2s/dx2
+      out[3] = 2.0f * spd;      // d2s/dxdy
+      out[4] = 2.0f * spd;      // d2s/dydx
+      out[5] = 0.0f;            // d2s/dy2
+    }
   }
 }
 
@@ -272,12 +344,31 @@ extern "C" int probe_bmm(const void* a, const void* b, void* out, int F, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cudaErrorInvalidValue where the window's staging would pass what a block
+// may take of shared memory (kBandMaxSmem).
 extern "C" int probe_band_grad(const void* win, const void* xy, void* out, int WS,
                                int S, void* stream) {
-  if (WS <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  band_grad_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(win), static_cast<const float*>(xy),
-      static_cast<float*>(out), WS, S);
+  if (WS <= 0 || S <= 0 || 4LL * WS * WS > kBandMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const float*>(win);
+  const auto* p = static_cast<const float*>(xy);
+  auto* o = static_cast<float*>(out);
+  const bool vec = WS * WS % 4 == 0 && (reinterpret_cast<uintptr_t>(win) & 15) == 0;
+  if (WS <= kBandStatic) {
+    band_grad_kernel<false><<<1, kBandThreads, 0, s>>>(w, p, o, WS, S, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t bytes = 4ull * WS * WS;
+  static size_t allowed = 48 * 1024;  // dynamic shared memory the kernel may take now
+  if (bytes > allowed) {
+    const int err = static_cast<int>(cudaFuncSetAttribute(
+        band_grad_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes)));
+    if (err) return err;
+    allowed = bytes;
+  }
+  band_grad_kernel<true><<<1, kBandThreads, bytes, s>>>(w, p, o, WS, S, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -78,7 +78,10 @@ def band_grad_plain(win, xy, size: int):
 def band_grad(win, xy, size: int):
     """Gradient and Hessian of s(x, y) = y * sum((R(x) W)^2) at ``xy`` [2]:
     [3, 2] = (g, H[0], H[1]). R(x) [size, WS] is the bilinear band at
-    floor(x) with weights (1 - fx, fx); W = ``win`` [WS, WS] float32."""
+    floor(x) with weights (1 - fx, fx); W = ``win`` [WS, WS] float32. The
+    kernel stages the whole window in one block's shared memory: its entry
+    point refuses a window past what a block may take (241 wide and more on
+    an H100), a launch error here."""
     if win.dim() != 2 or win.shape[0] != win.shape[1] or tuple(xy.shape) != (2,):
         raise ValueError(f"need win [WS, WS] and xy [2], got {tuple(win.shape)}, {tuple(xy.shape)}")
     if not win.is_cuda:

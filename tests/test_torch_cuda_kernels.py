@@ -524,6 +524,115 @@ def _edge_positions(h: int, w: int, size: int, f: int, seed: int) -> torch.Tenso
     return torch.tensor((edges + rand)[:f], dtype=torch.int32)
 
 
+WINDOW_CASES = [pw.INT, pw.FLOORED, pw.ROWS, pw.MASKED, pw.DIAGONAL]
+
+
+def _window_inputs(dev, case: int, h: int, w: int, size: int, f: int):
+    """(img, pos, mask) for ``pw.windows``: positions past every edge
+    (``_edge_positions``); FLOORED's with fractions from -0.9 to 0.9, so
+    that negative fractional starts floor below 0; MASKED's mask of -1..2."""
+    gen = torch.Generator(device=dev).manual_seed(h * w + size * f + case)
+    img = torch.rand((h, w), generator=gen, device=dev)
+    pos = _edge_positions(h, w, size, f, seed=f + size).to(dev)
+    mask = None
+    if case == pw.FLOORED:
+        frac = torch.linspace(-0.9, 0.9, 2 * f, device=dev).view(f, 2)
+        pos = pos.to(torch.float32) + frac
+    elif case == pw.MASKED:
+        mask = torch.randint(-1, 3, (f,), generator=gen, device=dev).to(torch.int32)
+        pos = None
+    return img, pos, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WINDOW_CASES)
+@pytest.mark.parametrize("h,w,size,f", [(128, 256, 32, 8), (40, 70, 16, 12), (64, 96, 30, 9),
+                                        (33, 50, 7, 5), (100, 120, 48, 6), (70, 90, 36, 4),
+                                        (210, 260, 200, 3)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_windows_every_case_at_the_edges_eager_and_replayed_on_card(cuda_device, case, h, w,
+                                                                    size, f, aligned):
+    """T1, T2, T6, T7 a-c and T12's window copy bit for bit equal to the
+    plain windows in every case: positions past every edge and corner,
+    windows 32 wide (16-byte stores), 30 and 7 (not a multiple of 4), 36, 48
+    and 200 (over 32), into an output on 16 bytes and one 4 bytes off them
+    (4-byte stores), eager and replayed from a CUDA graph."""
+    img, pos, mask = _window_inputs(cuda_device, case, h, w, size, f)
+    want = pw.windows_plain(img, pos, size, case, mask)
+    if aligned:
+        before = pw.WINDOWS.launches
+        eager, replayed = _eager_and_replayed(lambda: pw.windows(img, pos, size, case, mask))
+        assert pw.WINDOWS.launches == before + 2
+    else:
+        buf = torch.full((2, want.numel() + 1), float("nan"), device=cuda_device)
+        outs = buf[:, 1:].view(2, *want.shape)
+        assert outs[0].data_ptr() % 16 == 4
+
+        def launch(i):
+            pw.WINDOWS.launch(img.data_ptr(), None if pos is None else pos.data_ptr(),
+                              None if mask is None else mask.data_ptr(), outs[i].data_ptr(),
+                              h, w, f, size, case, build.stream_handle(cuda_device))
+            return outs[i]
+
+        launch(0)
+        _eager_and_replayed(lambda: launch(1))
+        eager, replayed = outs[0], outs[1]
+    assert torch.equal(eager, want), (case, size, aligned)
+    assert torch.equal(replayed, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [c.name for c in tools.all_cases()
+                                  if c.kernel is pw.WINDOWS])
+def test_windows_at_the_probes_inputs_eager_and_replayed_on_card(cuda_device, name):
+    """Each probe case of the window copy bit for bit equal to its plain
+    version on the probe's own inputs, eager and replayed."""
+    case = {c.name: c for c in tools.all_cases()}[name]
+    args = case.inputs(cuda_device)
+    eager, replayed = _eager_and_replayed(lambda: case.run(*args))
+    want = case.plain(*args)
+    assert torch.equal(eager, want) and torch.equal(replayed, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ws", [16, 30, 32, 48, 100, 200])
+@pytest.mark.parametrize("edge,dx", [("left", -3.4), ("left", -0.6), ("left", 0.0),
+                                     ("left", 2.5), ("right", -12.5), ("right", -2.1),
+                                     ("right", 0.5)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_band_grad_at_other_windows_and_points_eager_and_replayed_on_card(cuda_device, ws, edge,
+                                                                          dx, aligned):
+    """T4's gradient and Hessian within rtol 1e-5 of the plain version at
+    windows staged in static (up to 64 wide) and dynamic shared memory,
+    from 16-byte loads and (a window 4 bytes off 16) 4-byte ones, with x0
+    negative, inside, past WS - S and at WS (the band's rows past W read
+    0): x at ``dx`` from the window's left or right edge."""
+    x = dx if edge == "left" else ws + dx
+    gen = torch.Generator(device=cuda_device).manual_seed(ws * 100 + int(10 * x) + aligned)
+    buf = torch.rand((ws * ws + 1,), generator=gen, device=cuda_device)
+    win = (buf[:-1] if aligned else buf[1:]).view(ws, ws)
+    assert (win.data_ptr() % 16 == 0) == aligned
+    xy = torch.tensor([x, 0.7], device=cuda_device)
+    eager, replayed = _eager_and_replayed(lambda: pb.band_grad(win, xy, 13))
+    torch.testing.assert_close(eager, pb.band_grad_plain(win, xy, 13), rtol=1e-5, atol=0)
+    assert torch.equal(eager, replayed)
+
+
+@pytest.mark.cuda
+def test_band_grad_refuses_a_window_past_the_cards_shared_memory(cuda_device):
+    """The entry point stages the whole window in one block's shared memory:
+    240 x 240 floats (230,400 B) fit the H100's 227 KB, 241 x 241 do not, and
+    the wrapper raises the refusal (no plain fallback)."""
+    xy = torch.tensor([3.3, 1.7], device=cuda_device)
+    win = torch.rand((240, 240), device=cuda_device)
+    torch.testing.assert_close(pb.band_grad(win, xy, 13), pb.band_grad_plain(win, xy, 13),
+                               rtol=1e-5, atol=0)
+    before = pb.BAND_GRAD.launches
+    with pytest.raises(RuntimeError, match="cudaError 1$"):
+        pb.band_grad(torch.rand((241, 241), device=cuda_device), xy, 13)
+    assert pb.BAND_GRAD.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [pw.ONE_BY_ONE, pw.ALL_THEN_WAIT, pw.STAGED])
 def test_windows_async_routes_eager_and_replayed_on_card(cuda_device, case):
