@@ -1,33 +1,41 @@
-"""T17 (``probe_two_level``) and T13's g6 (``probe_sample_grouped``) and g3
-(``probe_banded_pair``) by CUDA-graph replay and by CUDA events, the
-kernels of ``csrc/probe_pyramid.cu`` and ``csrc/probe_banded.cu`` against
-other bodies of the same entry points (source files given on the command
-line, such as an earlier commit's, or an edited copy that tries other
-constants), in turns, in one process on the card. Run from the root of a
-checkout:
+"""The redesigned probe kernels by CUDA-graph replay and by CUDA events,
+against other bodies of the same entry points (source files given on the
+command line, such as an earlier commit's, or an edited copy that tries
+other constants), in turns, in one process on the card: T17
+(``probe_two_level``, ``csrc/probe_pyramid.cu``), T13's g6
+(``probe_sample_grouped``) and g3 (``probe_banded_pair``) and T4
+(``probe_band_grad``) of ``csrc/probe_banded.cu``, and the window copy of
+T1, T2, T6, T7 a-c and T12 (``probe_windows``, ``csrc/probe_windows.cu``).
+Run from the root of a checkout:
 
     mkdir -p build/k15
-    git show <commit>:slam_robot_tpu_torch/csrc/probe_pyramid.cu > build/k15/parent_pyramid.cu
-    git show <commit>:slam_robot_tpu_torch/csrc/probe_banded.cu > build/k15/parent_banded.cu
-    python3 tests/torch_probe_turns.py --body parent_pyramid=build/k15/parent_pyramid.cu \\
-        --body parent_banded=build/k15/parent_banded.cu
+    for f in probe_pyramid probe_banded probe_windows; do
+        git show <commit>:slam_robot_tpu_torch/csrc/$f.cu > build/k15/parent_$f.cu; done
+    python3 tests/torch_probe_turns.py --body parent_pyramid=build/k15/parent_probe_pyramid.cu \
+        --body parent_banded=build/k15/parent_probe_banded.cu \
+        --body parent_windows=build/k15/parent_probe_windows.cu
 
 Each body is compiled by nvcc (``-Xptxas -v``, printed) into a library of
 its own under ``build/k15/``; the entry points it exports are put in the
 wrappers' places (``probe_pyramid.TWO_LEVEL``, ``probe_banded.SAMPLE_GROUPED``,
-``probe_banded.BANDED_PAIR``), so that every body runs through the same
-Python path. The checkout's own sources are the bodies "this_pyramid" and
-"this_banded". Each body is first held against the plain versions, each
-call twice and the two calls bitwise equal: T17 atol 1e-5 at the probe's
-480x640, at 6x6 and at shapes with partial strips; g6 and g3 exactly, at
-the probes' inputs, g6 at smaller windows with taps past every edge, g3 at
-K % 4 != 0 and on an output 4 bytes off 16. Then, per case, the bodies are
-timed in turns (A B ... B A): by graph replay (``chip_smoke._graph_ms``, 50
-calls a graph: the device alone) and by events (``chip_smoke._time_ms``,
-200 calls: the host's call and the device); B2's three ``sep5`` calls for
-T17's two levels are timed by graph beside it. Prints the card and one JSON
-line (also written to ``build/k15/turns.json``); exits 1 when a body
-disagrees with a plain version.
+``probe_banded.BANDED_PAIR``, ``probe_banded.BAND_GRAD``,
+``probe_windows.WINDOWS``), so that every body runs through the same Python
+path. The checkout's own sources are the bodies "this_pyramid",
+"this_banded" and "this_windows". Each body is first held against the plain
+versions, each call twice and the two calls bitwise equal: T17 atol 1e-5 at
+the probe's 480x640, at 6x6 and at shapes with partial strips; g6 and g3
+exactly, at the probes' inputs, g6 at smaller windows with taps past every
+edge, g3 at K % 4 != 0 and on an output 4 bytes off 16; T4 rtol 1e-5 at
+the probe's inputs and at windows 16, 48 and 100 wide with the band past
+both edges; the window copy exactly, every probe case on its inputs and
+each of its five cases at windows 32, 30 and 48 wide with positions past
+every edge. Then, per case, the bodies are timed in turns (A B ... B A):
+by graph replay (``chip_smoke._graph_ms``, 50 calls a graph: the device
+alone) and by events (``chip_smoke._time_ms``, 200 calls: the host's call
+and the device); B2's three ``sep5`` calls for T17's two levels are timed
+by graph beside it. Prints the card and one JSON line (also written to
+``build/k15/turns.json``); exits 1 when a body disagrees with a plain
+version.
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from slam_robot_tpu_torch.ops.cuda import blur as bk  # noqa: E402
 from slam_robot_tpu_torch.ops.cuda import build  # noqa: E402
 from slam_robot_tpu_torch.ops.cuda import probe_banded as pb  # noqa: E402
 from slam_robot_tpu_torch.ops.cuda import probe_pyramid as pp  # noqa: E402
+from slam_robot_tpu_torch.ops.cuda import probe_windows as pw  # noqa: E402
+from slam_robot_tpu_torch import tools  # noqa: E402
 from slam_robot_tpu_torch.tools import probe_mosaic4 as t13  # noqa: E402
 from slam_robot_tpu_torch.tools.probe_pyramid_fused import frame  # noqa: E402
 
@@ -55,7 +65,10 @@ OUT = ROOT / "build" / "k15"
 CSRC = ROOT / "slam_robot_tpu_torch" / "csrc"
 # entry point -> the wrapper's kernel that launches it
 KERNELS = {"probe_two_level": pp.TWO_LEVEL, "probe_sample_grouped": pb.SAMPLE_GROUPED,
-           "probe_banded_pair": pb.BANDED_PAIR}
+           "probe_banded_pair": pb.BANDED_PAIR, "probe_band_grad": pb.BAND_GRAD,
+           "probe_windows": pw.WINDOWS}
+# the probe cases (tools.all_cases) that each entry point runs, timed by name
+PROBE_CASES = {"probe_band_grad": pb.BAND_GRAD, "probe_windows": pw.WINDOWS}
 T17_SHAPES = [(480, 640), (6, 6), (50, 70), (102, 150), (34, 646)]
 
 
@@ -113,6 +126,57 @@ def checks(dev, entries) -> dict:
         res.update(g6_checks(dev))
     if "probe_banded_pair" in entries:
         res.update(g3_checks(dev))
+    if "probe_band_grad" in entries:
+        res.update(t4_checks(dev))
+    if "probe_windows" in entries:
+        res.update(window_checks(dev))
+    return res
+
+
+def probe_cases(entry: str) -> list:
+    """The probe cases whose wrapper launches ``entry``."""
+    return [c for c in tools.all_cases() if c.kernel is PROBE_CASES[entry]]
+
+
+def t4_checks(dev) -> dict:
+    res = {}
+    for case in probe_cases("probe_band_grad"):
+        args = case.inputs(dev)
+        got, want = case.run(*args), case.plain(*args)
+        err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+        res[f"t4 {case.name}"] = {"ok": err <= 1e-5, "max_rel_err": err,
+                                  "repeatable": bool(torch.equal(got, case.run(*args)))}
+    for ws, x in ((16, -3.4), (48, 40.5), (100, 7.5)):
+        win = _rand((ws, ws), ws, dev)
+        xy = torch.tensor([x, 0.7], device=dev)
+        got, want = pb.band_grad(win, xy, 13), pb.band_grad_plain(win, xy, 13)
+        ok = bool(torch.allclose(got, want, rtol=1e-5, atol=0))
+        res[f"t4 ws {ws} x {x}"] = {"ok": ok, "max_abs_err": float((got - want).abs().max()),
+                                    "repeatable": bool(torch.equal(got, pb.band_grad(win, xy,
+                                                                                     13)))}
+    return res
+
+
+def window_checks(dev) -> dict:
+    res = {}
+    for case in probe_cases("probe_windows"):
+        args = case.inputs(dev)
+        got = case.run(*args)
+        res[f"windows {case.name}"] = {"ok": bool(torch.equal(got, case.plain(*args))),
+                                       "repeatable": bool(torch.equal(got, case.run(*args)))}
+    for size, (h, w) in ((32, (128, 256)), (30, (64, 96)), (48, (100, 120))):
+        img = _rand((h, w), size, dev)
+        ints = torch.tensor([[-5, -7], [w + 9, -3], [-9, h + 2], [w + 40, h + 40], [3, 4],
+                             [w - size, h - size]], dtype=torch.int32, device=dev)
+        floats = ints.to(torch.float32) + torch.linspace(-0.9, 0.9, ints.numel(),
+                                                         device=dev).view(-1, 2)
+        mask = torch.tensor([1, 0, -1, 2, 0, 1], dtype=torch.int32, device=dev)
+        for case in (pw.INT, pw.FLOORED, pw.ROWS, pw.MASKED, pw.DIAGONAL):
+            pos = floats if case == pw.FLOORED else None if case == pw.MASKED else ints
+            got = pw.windows(img, pos, size, case, mask)
+            res[f"windows case {case} ws {size}"] = {
+                "ok": bool(torch.equal(got, pw.windows_plain(img, pos, size, case, mask))),
+                "repeatable": bool(torch.equal(got, pw.windows(img, pos, size, case, mask)))}
     return res
 
 
@@ -175,7 +239,8 @@ def main(argv=None) -> int:
         return 1
     card = chip_smoke._card_line()
     print(card, flush=True)
-    bodies = {"this_pyramid": CSRC / "probe_pyramid.cu", "this_banded": CSRC / "probe_banded.cu"}
+    bodies = {"this_pyramid": CSRC / "probe_pyramid.cu", "this_banded": CSRC / "probe_banded.cu",
+              "this_windows": CSRC / "probe_windows.cu"}
     bodies.update(dict(b.split("=", 1) for b in ns.body))
     fns = compile_bodies(bodies)
     dev = torch.device("cuda")
@@ -197,7 +262,12 @@ def main(argv=None) -> int:
     cases = {"probe_two_level": lambda: pp.two_level(img, k),
              "probe_sample_grouped": lambda: pb.sample_grouped(*sample, t13.S, t13.G),
              "probe_banded_pair": lambda: pb.banded_pair_grouped(*band, t13.W, t13.S, t13.G)}
-    for entry, call in cases.items():
+    timed = {entry: (entry, call) for entry, call in cases.items()}
+    for entry in PROBE_CASES:
+        for case in probe_cases(entry):
+            args = case.inputs(dev)
+            timed[case.name] = (entry, lambda c=case, a=args: c.run(*a))
+    for label, (entry, call) in timed.items():
         names = [n for n in fns if entry in fns[n]]
         order = names + list(reversed(names))
         for key, timer in (("graph_ms", chip_smoke._graph_ms),
@@ -206,7 +276,7 @@ def main(argv=None) -> int:
             for n in order:
                 install(n)
                 readings[n].append(timer(call))
-            report[key][entry] = readings
+            report[key][label] = readings
 
     def three_calls():
         return bk.sep5(bk.sep5(bk.sep5(img, g0, 1), bk.PYRDOWN_WEIGHTS, 2), g1, 1)
