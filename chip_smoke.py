@@ -188,8 +188,9 @@ Phases, one line each (phases 2 and 3 several):
      fails on a non-finite number, a profile whose device time is counted
      twice on a stream or lies outside its run's markers (the profiled
      pass's own events on the device's clock; the busy share against an
-     unprofiled wall is printed, not gated), any capture with a kernel launch whose kernel it lost (ROADMAP C6;
-     the export's by trace_detail's audit, every other capture's by
+     unprofiled wall is printed, not gated), any capture with a kernel
+     launch whose kernel it lost (ROADMAP C6; the export's by
+     trace_detail's audit, every other capture's by
      profile_trace.audit), B1's or B2's launches in the profile, or their
      rows in the export, other than the port's counters over the same
      pass, B1 or B2 rows outside the span that launches them (track_sweep,

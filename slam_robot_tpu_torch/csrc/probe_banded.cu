@@ -113,6 +113,25 @@ __global__ void __launch_bounds__(kBmmWarps * 32)
   }
 }
 
+// n elements of src to dst, kBandStage loads a thread in flight before its
+// first store.
+template <typename T>
+__device__ __forceinline__ void stage_window(const T* __restrict__ src, T* dst, int n, int t) {
+  for (int e0 = 0; e0 < n; e0 += kBandThreads * kBandStage) {
+    T v[kBandStage];
+#pragma unroll
+    for (int k = 0; k < kBandStage; ++k) {
+      const int e = e0 + k * kBandThreads + t;
+      if (e < n) v[k] = src[e];
+    }
+#pragma unroll
+    for (int k = 0; k < kBandStage; ++k) {
+      const int e = e0 + k * kBandThreads + t;
+      if (e < n) dst[e] = v[k];
+    }
+  }
+}
+
 // The window staged in shared memory (kDynamic: dynamic shared memory, for
 // windows over kBandStatic on a side) while every thread reads xy (one
 // request a warp, in flight beside the window's loads), one barrier, then
@@ -131,35 +150,10 @@ __global__ void __launch_bounds__(kBandThreads)
   const float x = xy[0], y = xy[1];
   const int n = WS * WS;
   if (vec) {  // the window on 16 bytes: a float4 a load
-    const float4* w4 = reinterpret_cast<const float4*>(win);
-    float4* s4 = reinterpret_cast<float4*>(s_win);
-    for (int e0 = 0; e0 < n / 4; e0 += kBandThreads * kBandStage) {
-      float4 v[kBandStage];
-#pragma unroll
-      for (int k = 0; k < kBandStage; ++k) {
-        const int e = e0 + k * kBandThreads + t;
-        if (e < n / 4) v[k] = w4[e];
-      }
-#pragma unroll
-      for (int k = 0; k < kBandStage; ++k) {
-        const int e = e0 + k * kBandThreads + t;
-        if (e < n / 4) s4[e] = v[k];
-      }
-    }
+    stage_window(reinterpret_cast<const float4*>(win), reinterpret_cast<float4*>(s_win), n / 4,
+                 t);
   } else {
-    for (int e0 = 0; e0 < n; e0 += kBandThreads * kBandStage) {
-      float v[kBandStage];
-#pragma unroll
-      for (int k = 0; k < kBandStage; ++k) {
-        const int e = e0 + k * kBandThreads + t;
-        if (e < n) v[k] = win[e];
-      }
-#pragma unroll
-      for (int k = 0; k < kBandStage; ++k) {
-        const int e = e0 + k * kBandThreads + t;
-        if (e < n) s_win[e] = v[k];
-      }
-    }
+    stage_window(win, s_win, n, t);
   }
   const float x0f = floorf(x);
   const float fx = x - x0f;

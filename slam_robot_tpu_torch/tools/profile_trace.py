@@ -495,9 +495,10 @@ def _busy_session(works: dict, dev: torch.device) -> dict:
     found = marks(events, dev)
     n = len(works)
     # the last n markers close the works (traced's tail marker the last)
-    # and the one before them opens the first. A lost marker after that start would shift the split and is a
-    # lost launch there: then, as when too few markers are left, no work's
-    # bounds are known, and every work's capture is faulty (audit_fault)
+    # and the one before them opens the first. A lost marker after that
+    # start would shift the split and is a lost launch there: then, as when
+    # too few markers are left, no work's bounds are known, and every work's
+    # capture is faulty (audit_fault)
     lost_markers = max(0, n + 1 - len(found))
     bounds = found[-n - 1:]
     whole = audit(events if lost_markers else
@@ -570,15 +571,11 @@ def profile(run, dev: torch.device, n_units: int, out_dir: str | None = None,
         return prof, counters, run_audit(prof, dev)
 
     (prof, counters, captured), retakes = retaken(take, lambda got: audit_fault(got[2]))
-    events = capture_events(prof)
-    bounds = run_bounds(events, dev)
-    window, ops = None, []
-    if bounds is not None:
-        lead, tail = bounds
-        window = (lead.start_ns() + lead.duration_ns(), tail.start_ns())
-        ops = [e for e in events if lead.correlation_id() < e.correlation_id() <
-               tail.correlation_id() and (_is_device(e) if dev.type == "cuda"
-                                          else not e.is_user_annotation())]
+    bounds = run_bounds(capture_events(prof), dev)
+    window = None if bounds is None else (bounds[0].start_ns() + bounds[0].duration_ns(),
+                                          bounds[1].start_ns())
+    ops = [e for e in run_events(prof, dev) or ()
+           if (_is_device(e) if dev.type == "cuda" else not e.is_user_annotation())]
     timing = device_time(ops, window, prof.run_ns)
     with SpanTimer() as spans:
         t0 = time.perf_counter()
