@@ -9,10 +9,24 @@
 //   vertical pass first, taps in ascending order (acc = k0 x0; acc += k1 x1
 //   ...), k0 the sigma=1.1 Gaussian, kd = [1,4,6,4,1]/16, k1 sigma=0.8.
 //
-// What bounds them on an H100: bytes. probe_two_level reads a 480x640
-// float32 frame once and writes l0 and l1 once (2.76 MB, 0.83 us at
-// 3.35 TB/s); the ~60 flops per input pixel are far below the card's
-// operations-per-byte balance. Kernel B2 (blur.cu) needs three launches and
+// What bounds them on an H100: bytes, and below that the launch. An empty
+// kernel takes 0.00101-0.00104 ms by CUDA-graph replay as one block, and
+// 0.00112-0.00113 as 75 blocks of 256 threads (NVIDIA H100 80GB HBM3,
+// 700.00 W; tests/torch_probe_turns.py). probe_decimate moves 0.92 MB at
+// 480x640 (the even rows whole, and the output): 0.000275 ms at 3.35 TB/s.
+//
+// Design of probe_decimate: a 2-D grid of 16 x 4-thread blocks, no
+// division; a thread takes 8 adjacent input columns of one even row as two
+// 16-byte loads and stores its 4 outputs as one 16-byte store where W % 8
+// == 0 and both pointers are on 16 bytes, else its 4 outputs element by
+// element; every load is issued before the first store. At 480x640 that is
+// 19,200 threads in 300 blocks, one wave. By graph, in turns (same card):
+// 0.00147-0.00149 ms; blocks of 16 x 16 threads (75 blocks) 0.00154-0.00155,
+// 16 x 8 0.00149-0.00151, 16 x 1 0.00172-0.00173.
+//
+// probe_two_level reads a 480x640 float32 frame once and writes l0 and l1
+// once (2.76 MB, 0.83 us at 3.35 TB/s); the ~60 flops per input pixel are
+// far below the card's operations-per-byte balance. Kernel B2 (blur.cu) needs three launches and
 // writes and re-reads l0 and the decimated level for the same two levels.
 //
 // Design of probe_two_level (sep5's design, blur.cu, carried through both
@@ -56,6 +70,7 @@
 
 namespace {
 
+constexpr int kDecX = 16, kDecY = 4;             // probe_decimate's block: 4 outputs a thread
 constexpr int kTwoThreads = 192;                 // a block: one input column a thread
 constexpr int kTwoRows = 8;                      // l1 rows a block
 constexpr int kTwoCols = 80;                     // l1 columns a block
@@ -89,13 +104,26 @@ __device__ __forceinline__ float taps5(const float* k, const float* x) {
   return acc;
 }
 
-__global__ void decimate_kernel(const float* __restrict__ in, float* __restrict__ out,
-                                int W, int Ho, int Wo) {
-  const int total = Ho * Wo;
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += gridDim.x * blockDim.x) {
-    const int r = idx / Wo, c = idx % Wo;
-    out[idx] = in[(2 * r) * W + 2 * c];
+__global__ void __launch_bounds__(kDecX * kDecY)
+decimate_kernel(const float* __restrict__ in, float* __restrict__ out, int W, int Ho, int Wo,
+                bool vec) {
+  const int c0 = 4 * (blockIdx.x * kDecX + threadIdx.x);  // the thread's first output column
+  if (c0 >= Wo) return;
+  for (int r = blockIdx.y * kDecY + threadIdx.y; r < Ho; r += gridDim.y * kDecY) {
+    const float* src = in + static_cast<long long>(2 * r) * W + 2 * c0;
+    float* dst = out + static_cast<long long>(r) * Wo + c0;
+    if (vec) {
+      const float4 a = *reinterpret_cast<const float4*>(src);
+      const float4 b = *reinterpret_cast<const float4*>(src + 4);
+      *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.z, b.x, b.z);
+    } else {
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[u] = c0 + u < Wo ? src[2 * u] : 0.0f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c0 + u < Wo) dst[u] = o[u];
+    }
   }
 }
 
@@ -211,15 +239,19 @@ two_level_kernel(const float* __restrict__ in, const float* __restrict__ taps,
   }
 }
 
+bool on16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 }  // namespace
 
 extern "C" int probe_decimate(const void* in, void* out, int H, int W, void* stream) {
   if (H < 2 || W < 2 || H % 2 || W % 2) return static_cast<int>(cudaErrorInvalidValue);
-  const int total = (H / 2) * (W / 2);
-  const int threads = 256;
-  const int blocks = (total + threads - 1) / threads;
-  decimate_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out), W, H / 2, W / 2);
+  const int Ho = H / 2, Wo = W / 2;
+  const bool vec = W % 8 == 0 && on16(in) && on16(out);
+  const dim3 block(kDecX, kDecY);
+  const int strips = (Ho + kDecY - 1) / kDecY;  // past the grid's 65535 rows, the kernel loops
+  const dim3 grid((Wo + 4 * kDecX - 1) / (4 * kDecX), strips < 65535 ? strips : 65535);
+  decimate_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(out), W, Ho, Wo, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -228,7 +260,6 @@ extern "C" int probe_two_level(const void* in, const void* taps, void* l0, void*
   if (H % 2 || W % 2 || H / 2 < 3 || W / 2 < 3)
     return static_cast<int>(cudaErrorInvalidValue);
   // 16-byte stores where every row of the level starts on 16 bytes
-  const auto on16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   const int vec = (W % 4 == 0 && on16(l0) ? kVecL0 : 0) | ((W / 2) % 4 == 0 && on16(l1) ? kVecL1 : 0);
   const dim3 grid((W / 2 + kTwoCols - 1) / kTwoCols, (H / 2 + kTwoRows - 1) / kTwoRows);
   two_level_kernel<<<grid, kTwoThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -61,6 +61,41 @@ def while_elements(x):
     return out
 
 
+# loop inputs at the edges: values that pass 2.4 after each of 1..5 steps
+# (2.4 itself and the values k/2 under it among them), that
+# never pass (-0.1 and under, -inf, NaN), that start past it (+inf), and
+# both zeros
+LOOP_EDGES = (2.4, 2.0, 1.9, 1.5, 1.4, 1.0, 0.9, 0.5, 0.4, 0.0, -0.0, -0.1, -0.5, -3.0,
+              2.5, 7.0, 3e38, float("inf"), float("-inf"), float("nan"))
+SUM_KINDS = ("above", "below", "two")
+
+
+def loop_edges(device, seed: int, shape) -> torch.Tensor:
+    """float32 ``shape``: uniform in [-0.6, 2.9) (every step count, 1 to 6,
+    and rows whose column 0 passes at different steps), with LOOP_EDGES laid
+    over seeded places (as many as fit)."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-0.6, 2.9, shape).astype(np.float32).ravel()
+    k = min(a.size, len(LOOP_EDGES))
+    edges = rng.permutation(np.array(LOOP_EDGES, np.float32))
+    a[rng.choice(a.size, k, replace=False)] = edges[:k]
+    return torch.as_tensor(a.reshape(shape), device=device)
+
+
+def sum_edges(device, seed: int, shape, kind: str) -> torch.Tensor:
+    """F's inputs at the edges: a sum far above 2 ("above"), far below it
+    ("below"), or exactly 2.0, one element 2.0 and the rest 0 ("two")."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    if kind == "two":
+        a = np.zeros(n, np.float32)
+        a[rng.integers(n)] = 2.0
+    else:
+        sign = 1.0 if kind == "above" else -1.0
+        a = (sign * (rng.uniform(0.0, 1.0, n) + 12.0 / n)).astype(np.float32)
+    return torch.as_tensor(a.reshape(shape), device=device)
+
+
 def index_diagonal(img, pos, size: int = WS):
     """C as one advanced-indexing call: rows and columns from pos[0, 0]."""
     ar = pos[0, 0].long() + torch.arange(size, device=img.device)

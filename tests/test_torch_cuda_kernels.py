@@ -47,6 +47,7 @@ from slam_robot_tpu_torch.ops.cuda import probe_control as pc
 from slam_robot_tpu_torch.ops.cuda import probe_newton as pn
 from slam_robot_tpu_torch.ops.cuda import probe_pyramid as pp
 from slam_robot_tpu_torch.ops.cuda import probe_windows as pw
+from slam_robot_tpu_torch.tools import probe_mosaic2 as t_m2
 from slam_robot_tpu_torch.tools import probe_newton_kernel as t_nk
 
 F = 37
@@ -415,6 +416,93 @@ def test_probe_windows_clamp_and_control_on_random_inputs(cuda_device):
     x = (3.0 * torch.rand((24, 40), generator=gen, device=cuda_device)).contiguous()
     for case in (pc.ROW_DONE, pc.FIXED, pc.REDUCE, pc.ELEMENT_DONE):
         assert torch.equal(pc.control(x, case), pc.control_plain(x, case))
+
+
+CONTROL_CASES = {"row_done": pc.ROW_DONE, "fixed": pc.FIXED, "reduce": pc.REDUCE,
+                 "element_done": pc.ELEMENT_DONE}
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _control_inputs(dev, case: int, shape) -> list:
+    """F's three sums (far above 2, far below, exactly 2.0); for the loops,
+    the edge values each alone at (1, 1), else three seeded edge inputs."""
+    if case == pc.REDUCE:
+        return [t_m2.sum_edges(dev, 1, shape, kind) for kind in t_m2.SUM_KINDS]
+    if shape == (1, 1):
+        return [torch.tensor([[v]], dtype=torch.float32, device=dev) for v in t_m2.LOOP_EDGES]
+    return [t_m2.loop_edges(dev, seed, shape) for seed in range(3)]
+
+
+def _off16(dev, *shapes):
+    """Tensors of ``shapes`` that start 4 bytes past 16, in one buffer."""
+    sizes = [math.prod(s) for s in shapes]
+    buf = torch.zeros(sum(sizes) + 4 * len(shapes), device=dev)
+    out, at = [], 1
+    for shape, n in zip(shapes, sizes):
+        out.append(buf[at:at + n].view(shape))
+        at = (at + n + 2) // 4 * 4 + 1  # the next float 4 bytes past 16
+    assert all(t.data_ptr() % 16 == 4 for t in out)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (8, 2), (8, 128), (24, 40), (1, 1024), (1023, 1),
+                                   (3, 5)])
+@pytest.mark.parametrize("case", list(CONTROL_CASES))
+def test_probe_control_bit_for_bit_eager_and_replayed_on_card(cuda_device, case, shape):
+    """T5, T7 e-g and T11's kernel at shapes from one element to the 1024
+    it takes, one row and one column, partial warps, on values that pass
+    2.4 after each of 1..5 steps or never, start past it, NaN, +-inf and
+    -0.0 (F: sums far on each side of 2 and exactly 2.0): bit for bit the
+    plain version, twice the same, a replayed CUDA graph the eager call;
+    where n % 4 == 0, x and out 4 bytes off 16, and x alone, give the same
+    bits."""
+    mode = CONTROL_CASES[case]
+    r, c = shape
+    for x in _control_inputs(cuda_device, mode, shape):
+        before = pc.KERNEL.launches
+        eager, replayed = _eager_and_replayed(lambda: pc.control(x, mode))
+        again = pc.control(x, mode)
+        assert pc.KERNEL.launches == before + 3
+        want = _bits(pc.control_plain(x, mode))
+        assert torch.equal(_bits(eager), want), x
+        assert torch.equal(_bits(again), want) and torch.equal(_bits(replayed), want)
+        if x.numel() % 4 == 0:
+            xo, out = _off16(cuda_device, shape, shape)
+            xo.copy_(x)
+            assert torch.equal(_bits(pc.control(xo, mode)), want)
+            pc.KERNEL.launch(xo.data_ptr(), out.data_ptr(), r, c, mode,
+                             build.stream_handle(cuda_device))
+            assert torch.equal(_bits(out), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(480, 640), (6, 8), (102, 150), (6, 10), (34, 646)])
+def test_probe_decimate_bit_for_bit_eager_and_replayed_on_card(cuda_device, shape):
+    """T16's kernel at the probe's 480x640, at the least size, at W % 8 != 0
+    (6x10, 102x150, 34x646: element by element) and on inputs and outputs
+    4 bytes off 16 (each alone and both): img[::2, ::2] bit for bit, twice
+    the same, a replayed CUDA graph the eager call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[0] * shape[1])
+    img = torch.rand(shape, generator=gen, device=cuda_device)
+    h, w = shape
+    want = img[::2, ::2]
+    before = pp.DECIMATE.launches
+    eager, replayed = _eager_and_replayed(lambda: pp.decimate(img))
+    again = pp.decimate(img)
+    assert pp.DECIMATE.launches == before + 3
+    assert torch.equal(eager, want) and torch.equal(again, want) and torch.equal(replayed, want)
+    src, out = _off16(cuda_device, shape, (h // 2, w // 2))
+    src.copy_(img)
+    assert torch.equal(pp.decimate(src), want)
+    stream = build.stream_handle(cuda_device)
+    for a in (img, src):
+        out.zero_()
+        pp.DECIMATE.launch(a.data_ptr(), out.data_ptr(), h, w, stream)
+        assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

@@ -1,29 +1,42 @@
 """The redesigned probe kernels by CUDA-graph replay and by CUDA events,
 against other bodies of the same entry points (source files given on the
 command line, such as an earlier commit's, or an edited copy that tries
-other constants), in turns, in one process on the card: T17
-(``probe_two_level``, ``csrc/probe_pyramid.cu``), T13's g6
+other constants), in turns, in one process on the card: T5, T7 e-g and T11
+(``probe_control``, ``csrc/probe_control.cu``), T16 (``probe_decimate``)
+and T17 (``probe_two_level``) of ``csrc/probe_pyramid.cu``, T13's g6
 (``probe_sample_grouped``) and g3 (``probe_banded_pair``) and T4
 (``probe_band_grad``) of ``csrc/probe_banded.cu``, and the window copy of
-T1, T2, T6, T7 a-c and T12 (``probe_windows``, ``csrc/probe_windows.cu``).
-Run from the root of a checkout:
+T1, T2, T6, T7 a-c and T12 (``probe_windows``, ``csrc/probe_windows.cu``);
+and the card's smallest launch, an empty kernel of one block at 32 and at
+1024 threads, and at T16's grid, 75 blocks of 256 (its source written
+under ``build/turns/``). Run from the
+root of a checkout:
 
-    mkdir -p build/k15
-    for f in probe_pyramid probe_banded probe_windows; do
-        git show <commit>:slam_robot_tpu_torch/csrc/$f.cu > build/k15/parent_$f.cu; done
-    python3 tests/torch_probe_turns.py --body parent_pyramid=build/k15/parent_probe_pyramid.cu \
-        --body parent_banded=build/k15/parent_probe_banded.cu \
-        --body parent_windows=build/k15/parent_probe_windows.cu
+    mkdir -p build/turns
+    for f in probe_control probe_pyramid; do
+        git show <commit>:slam_robot_tpu_torch/csrc/$f.cu > build/turns/parent_$f.cu; done
+    sed 's/kDecX = 16, kDecY = 4;/kDecX = 16, kDecY = 8;/' \
+        slam_robot_tpu_torch/csrc/probe_pyramid.cu > build/turns/dec16x8_probe_pyramid.cu
+    python3 tests/torch_probe_turns.py --body parent_control=build/turns/parent_probe_control.cu \
+        --body parent_pyramid=build/turns/parent_probe_pyramid.cu \
+        --body dec16x8_pyramid=build/turns/dec16x8_probe_pyramid.cu
 
 Each body is compiled by nvcc (``-Xptxas -v``, printed) into a library of
-its own under ``build/k15/``; the entry points it exports are put in the
-wrappers' places (``probe_pyramid.TWO_LEVEL``, ``probe_banded.SAMPLE_GROUPED``,
+its own under ``build/turns/``; the entry points it exports are put in the
+wrappers' places (``probe_control.KERNEL``, ``probe_pyramid.DECIMATE``,
+``probe_pyramid.TWO_LEVEL``, ``probe_banded.SAMPLE_GROUPED``,
 ``probe_banded.BANDED_PAIR``, ``probe_banded.BAND_GRAD``,
 ``probe_windows.WINDOWS``), so that every body runs through the same Python
-path. The checkout's own sources are the bodies "this_pyramid",
-"this_banded" and "this_windows". Each body is first held against the plain
-versions, each call twice and the two calls bitwise equal: T17 atol 1e-5 at
-the probe's 480x640, at 6x6 and at shapes with partial strips; g6 and g3
+path. The checkout's own sources are the bodies "this_control",
+"this_pyramid", "this_banded" and "this_windows". Each body is first held
+against the plain versions, each call twice and the two calls bitwise
+equal: the control loops and branch bit for bit, every probe case and its
+seeded inputs, at shapes from 1x1 to 1x1024 on values at the loops' edges
+(NaN, +-inf, -0.0, past 2.4 from the start, passing after each step or
+never) and F's sums on each side of 2 and at 2.0, and at 8x128 on x and
+out 4 bytes off 16; T16 bit for bit at the probe's 480x640 and at W % 8 !=
+0, and on an input and an output off 16 bytes; T17 atol 1e-5 at the
+probe's 480x640, at 6x6 and at shapes with partial strips; g6 and g3
 exactly, at the probes' inputs, g6 at smaller windows with taps past every
 edge, g3 at K % 4 != 0 and on an output 4 bytes off 16; T4 rtol 1e-5 at
 the probe's inputs and at windows 16, 48 and 100 wide with the band past
@@ -32,9 +45,12 @@ each of its five cases at windows 32, 30 and 48 wide with positions past
 every edge. Then, per case, the bodies are timed in turns (A B ... B A):
 by graph replay (``chip_smoke._graph_ms``, 50 calls a graph: the device
 alone) and by events (``chip_smoke._time_ms``, 200 calls: the host's call
-and the device); B2's three ``sep5`` calls for T17's two levels are timed
-by graph beside it. Prints the card and one JSON line (also written to
-``build/k15/turns.json``); exits 1 when a body disagrees with a plain
+and the device); a case with a one-call PyTorch equivalent (T16's
+``img[::2, ::2].contiguous()``) has that call timed by graph before and
+after its turns; the empty kernel by graph and events at each shape, in
+turns; B2's three ``sep5`` calls for T17's two levels by graph
+beside it. Prints the card and one JSON line (also written to
+``build/turns/turns.json``); exits 1 when a body disagrees with a plain
 version.
 """
 
@@ -55,41 +71,64 @@ import chip_smoke  # noqa: E402
 from slam_robot_tpu_torch.ops.cuda import blur as bk  # noqa: E402
 from slam_robot_tpu_torch.ops.cuda import build  # noqa: E402
 from slam_robot_tpu_torch.ops.cuda import probe_banded as pb  # noqa: E402
+from slam_robot_tpu_torch.ops.cuda import probe_control as pc  # noqa: E402
 from slam_robot_tpu_torch.ops.cuda import probe_pyramid as pp  # noqa: E402
 from slam_robot_tpu_torch.ops.cuda import probe_windows as pw  # noqa: E402
 from slam_robot_tpu_torch import tools  # noqa: E402
+from slam_robot_tpu_torch.tools import probe_mosaic2 as t7  # noqa: E402
 from slam_robot_tpu_torch.tools import probe_mosaic4 as t13  # noqa: E402
 from slam_robot_tpu_torch.tools.probe_pyramid_fused import frame  # noqa: E402
 
-OUT = ROOT / "build" / "k15"
+OUT = ROOT / "build" / "turns"
 CSRC = ROOT / "slam_robot_tpu_torch" / "csrc"
 # entry point -> the wrapper's kernel that launches it
-KERNELS = {"probe_two_level": pp.TWO_LEVEL, "probe_sample_grouped": pb.SAMPLE_GROUPED,
+KERNELS = {"probe_control": pc.KERNEL, "probe_decimate": pp.DECIMATE,
+           "probe_two_level": pp.TWO_LEVEL, "probe_sample_grouped": pb.SAMPLE_GROUPED,
            "probe_banded_pair": pb.BANDED_PAIR, "probe_band_grad": pb.BAND_GRAD,
            "probe_windows": pw.WINDOWS}
 # the probe cases (tools.all_cases) that each entry point runs, timed by name
-PROBE_CASES = {"probe_band_grad": pb.BAND_GRAD, "probe_windows": pw.WINDOWS}
+PROBE_CASES = {"probe_control": pc.KERNEL, "probe_decimate": pp.DECIMATE,
+               "probe_band_grad": pb.BAND_GRAD, "probe_windows": pw.WINDOWS}
 T17_SHAPES = [(480, 640), (6, 6), (50, 70), (102, 150), (34, 646)]
+CONTROL_SHAPES = [(1, 1), (8, 2), (8, 128), (24, 40), (1, 1024), (1023, 1), (3, 5)]
+DECIMATE_SHAPES = [(480, 640), (6, 8), (102, 150), (6, 10), (34, 646)]
+# the card's smallest launch, an empty kernel: blocks x threads (one block,
+# and T16's grid)
+EMPTY_SHAPES = ((1, 32), (1, 1024), (75, 256))
+EMPTY_SOURCE = """#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
-def compile_bodies(bodies: dict) -> dict:
-    """{name: source} -> {name: {entry point: the loaded C function}}, every
-    nvcc started at once."""
+def compile_bodies(bodies: dict) -> tuple[dict, object]:
+    """{name: source} -> ({name: {entry point: the loaded C function}}, the
+    empty kernel's launch function), every nvcc started at once."""
     OUT.mkdir(parents=True, exist_ok=True)
+    empty = OUT / "empty.cu"
+    empty.write_text(EMPTY_SOURCE)
     procs = {}
-    for name, src in bodies.items():
+    for name, src in {**bodies, "empty": empty}.items():
         lib = OUT / f"lib_{name}.so"
         cmd = [build._nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                "-shared", "-Xptxas=-v", f"-I{CSRC}", "-o", str(lib), str(src)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
-    fns = {}
+    libs = {}
     for name, (lib, p) in procs.items():
         text = p.communicate()[0]
         print(f"nvcc {name}: exit {p.returncode}\n{text}", flush=True)
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}")
-        so = ctypes.CDLL(str(lib))
+        libs[name] = ctypes.CDLL(str(lib))
+    launch_empty = libs.pop("empty").empty_launch
+    launch_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    launch_empty.restype = ctypes.c_int
+    fns = {}
+    for name, so in libs.items():
         fns[name] = {}
         for entry in KERNELS:
             fn = getattr(so, entry, None)
@@ -97,7 +136,7 @@ def compile_bodies(bodies: dict) -> dict:
                 fn.argtypes = build.SIGNATURES[entry]
                 fn.restype = ctypes.c_int
                 fns[name][entry] = fn
-    return fns
+    return fns, launch_empty
 
 
 def _rand(shape, seed, dev, lo=0.0, hi=1.0):
@@ -120,6 +159,10 @@ def checks(dev, entries) -> dict:
     """The installed bodies of ``entries`` against the plain versions:
     {case: (ok, the largest error, two calls bitwise equal)}."""
     res = {}
+    if "probe_control" in entries:
+        res.update(control_checks(dev))
+    if "probe_decimate" in entries:
+        res.update(decimate_checks(dev))
     if "probe_two_level" in entries:
         res.update(t17_checks(dev))
     if "probe_sample_grouped" in entries:
@@ -133,9 +176,67 @@ def checks(dev, entries) -> dict:
     return res
 
 
-def probe_cases(entry: str) -> list:
-    """The probe cases whose wrapper launches ``entry``."""
-    return [c for c in tools.all_cases() if c.kernel is PROBE_CASES[entry]]
+def probe_cases(entry: str, kind: str = "CASES") -> list:
+    """The probe cases (or their seeded twins) whose wrapper launches ``entry``."""
+    return [c for c in tools.all_cases(kind) if c.kernel is PROBE_CASES[entry]]
+
+
+def _same_bits(a, b) -> bool:
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _off16(dev, n: int) -> torch.Tensor:
+    """n floats that start 4 bytes past 16."""
+    t = torch.zeros(n + 1, device=dev)[1:]
+    assert t.data_ptr() % 16 == 4
+    return t
+
+
+def control_checks(dev) -> dict:
+    res = {}
+    for case in probe_cases("probe_control") + probe_cases("probe_control", "SEEDED"):
+        args = case.inputs(dev)
+        got = case.run(*args)
+        res[f"control {case.name}"] = {"ok": _same_bits(got, case.plain(*args)),
+                                       "repeatable": _same_bits(got, case.run(*args))}
+    for mode in (pc.ROW_DONE, pc.FIXED, pc.REDUCE, pc.ELEMENT_DONE):
+        for shape in CONTROL_SHAPES:
+            if mode == pc.REDUCE:
+                inputs = [t7.sum_edges(dev, 1, shape, kind) for kind in t7.SUM_KINDS]
+            else:
+                inputs = [t7.loop_edges(dev, seed, shape) for seed in range(2)]
+            for i, x in enumerate(inputs):
+                got = pc.control(x, mode)
+                res[f"control case {mode} {shape[0]}x{shape[1]} input {i}"] = {
+                    "ok": _same_bits(got, pc.control_plain(x, mode)),
+                    "repeatable": _same_bits(got, pc.control(x, mode))}
+        # x and out 4 bytes off 16 (element by element)
+        x = t7.loop_edges(dev, 5, (8, 128))
+        xo, out = _off16(dev, x.numel()).view(8, 128), _off16(dev, x.numel()).view(8, 128)
+        xo.copy_(x)
+        pc.KERNEL.launch(xo.data_ptr(), out.data_ptr(), 8, 128, mode, build.stream_handle(dev))
+        res[f"control case {mode} 8x128 off 16"] = {
+            "ok": _same_bits(out, pc.control_plain(x, mode)), "repeatable": True}
+    return res
+
+
+def decimate_checks(dev) -> dict:
+    res = {}
+    for case in probe_cases("probe_decimate"):
+        args = case.inputs(dev)
+        got = case.run(*args)
+        res[f"decimate {case.name}"] = {"ok": bool(torch.equal(got, case.plain(*args))),
+                                        "repeatable": bool(torch.equal(got, case.run(*args)))}
+    for h, w in DECIMATE_SHAPES:
+        img = _rand((h, w), h + w, dev)
+        got = pp.decimate(img)
+        src, out = _off16(dev, h * w).view(h, w), _off16(dev, h * w // 4).view(h // 2, w // 2)
+        src.copy_(img)
+        pp.DECIMATE.launch(src.data_ptr(), out.data_ptr(), h, w, build.stream_handle(dev))
+        want = img[::2, ::2]
+        res[f"decimate {h}x{w}"] = {"ok": bool(torch.equal(got, want) and torch.equal(out, want)),
+                                    "repeatable": bool(torch.equal(got, pp.decimate(img)))}
+    return res
 
 
 def t4_checks(dev) -> dict:
@@ -239,12 +340,13 @@ def main(argv=None) -> int:
         return 1
     card = chip_smoke._card_line()
     print(card, flush=True)
-    bodies = {"this_pyramid": CSRC / "probe_pyramid.cu", "this_banded": CSRC / "probe_banded.cu",
-              "this_windows": CSRC / "probe_windows.cu"}
+    bodies = {f"this_{f}": CSRC / f"probe_{f}.cu"
+              for f in ("control", "pyramid", "banded", "windows")}
     bodies.update(dict(b.split("=", 1) for b in ns.body))
-    fns = compile_bodies(bodies)
+    fns, launch_empty = compile_bodies(bodies)
     dev = torch.device("cuda")
-    report = {"card": card, "checks": {}, "graph_ms": {}, "events_ms": {}}
+    report = {"card": card, "checks": {}, "graph_ms": {}, "events_ms": {},
+              "library_graph_ms": {}, "empty_graph_ms": {}, "empty_events_ms": {}}
 
     def install(name):
         for entry, fn in fns[name].items():
@@ -262,14 +364,17 @@ def main(argv=None) -> int:
     cases = {"probe_two_level": lambda: pp.two_level(img, k),
              "probe_sample_grouped": lambda: pb.sample_grouped(*sample, t13.S, t13.G),
              "probe_banded_pair": lambda: pb.banded_pair_grouped(*band, t13.W, t13.S, t13.G)}
-    timed = {entry: (entry, call) for entry, call in cases.items()}
+    timed = {entry: (entry, call, None) for entry, call in cases.items()}
     for entry in PROBE_CASES:
         for case in probe_cases(entry):
             args = case.inputs(dev)
-            timed[case.name] = (entry, lambda c=case, a=args: c.run(*a))
-    for label, (entry, call) in timed.items():
+            timed[case.name] = (entry, lambda c=case, a=args: c.run(*a),
+                                case.library(*args) if case.library else None)
+    for label, (entry, call, library) in timed.items():
         names = [n for n in fns if entry in fns[n]]
         order = names + list(reversed(names))
+        if library is not None:
+            report["library_graph_ms"][label] = [chip_smoke._graph_ms(library)]
         for key, timer in (("graph_ms", chip_smoke._graph_ms),
                            ("events_ms", lambda f: chip_smoke._time_ms(f, 200))):
             readings = {n: [] for n in names}
@@ -277,6 +382,21 @@ def main(argv=None) -> int:
                 install(n)
                 readings[n].append(timer(call))
             report[key][label] = readings
+        if library is not None:
+            report["library_graph_ms"][label].append(chip_smoke._graph_ms(library))
+
+    # the empty kernel in turns, A B C C B A (the stream read on each call:
+    # under capture it is the graph's)
+    def empty(blocks, threads):
+        build.check_launch("empty_kernel",
+                           launch_empty(blocks, threads, build.stream_handle(dev)))
+
+    for key, timer in (("empty_graph_ms", chip_smoke._graph_ms),
+                       ("empty_events_ms", lambda f: chip_smoke._time_ms(f, 200))):
+        readings = {f"{b}x{t}": [] for b, t in EMPTY_SHAPES}
+        for b, t in EMPTY_SHAPES + EMPTY_SHAPES[::-1]:
+            readings[f"{b}x{t}"].append(timer(lambda b=b, t=t: empty(b, t)))
+        report[key] = readings
 
     def three_calls():
         return bk.sep5(bk.sep5(bk.sep5(img, g0, 1), bk.PYRDOWN_WEIGHTS, 2), g1, 1)
