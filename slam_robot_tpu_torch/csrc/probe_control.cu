@@ -8,7 +8,7 @@
 //   case 3 (element done): probe_mosaic2.py g (call :26), probe_mosaic3.py l (:149)
 //
 // What bounds them on an H100: the launch (at most 8x128 float32, five
-// steps). An empty kernel of one block takes 0.00101-0.00104 ms by
+// steps). An empty kernel of one block takes 0.00101-0.00105 ms by
 // CUDA-graph replay at 32 and at 1024 threads (NVIDIA H100 80GB HBM3,
 // 700.00 W; tests/torch_probe_turns.py). Above it, a case waits on its
 // load, then on the instructions between load and store, issued by the

@@ -10,8 +10,8 @@
 //   ...), k0 the sigma=1.1 Gaussian, kd = [1,4,6,4,1]/16, k1 sigma=0.8.
 //
 // What bounds them on an H100: bytes, and below that the launch. An empty
-// kernel takes 0.00101-0.00104 ms by CUDA-graph replay as one block, and
-// 0.00112-0.00113 as 75 blocks of 256 threads (NVIDIA H100 80GB HBM3,
+// kernel takes 0.00101-0.00105 ms by CUDA-graph replay as one block, and
+// 0.00112-0.00114 as 75 blocks of 256 threads (NVIDIA H100 80GB HBM3,
 // 700.00 W; tests/torch_probe_turns.py). probe_decimate moves 0.92 MB at
 // 480x640 (the even rows whole, and the output): 0.000275 ms at 3.35 TB/s.
 //
@@ -21,13 +21,14 @@
 // == 0 and both pointers are on 16 bytes, else its 4 outputs element by
 // element; every load is issued before the first store. At 480x640 that is
 // 19,200 threads in 300 blocks, one wave. By graph, in turns (same card):
-// 0.00147-0.00149 ms; blocks of 16 x 16 threads (75 blocks) 0.00154-0.00155,
+// 0.00147-0.00150 ms; blocks of 16 x 16 threads (75 blocks) 0.00154-0.00155,
 // 16 x 8 0.00149-0.00151, 16 x 1 0.00172-0.00173.
 //
 // probe_two_level reads a 480x640 float32 frame once and writes l0 and l1
 // once (2.76 MB, 0.83 us at 3.35 TB/s); the ~60 flops per input pixel are
-// far below the card's operations-per-byte balance. Kernel B2 (blur.cu) needs three launches and
-// writes and re-reads l0 and the decimated level for the same two levels.
+// far below the card's operations-per-byte balance. Kernel B2 (blur.cu)
+// needs three launches and writes and re-reads l0 and the decimated level
+// for the same two levels.
 //
 // Design of probe_two_level (sep5's design, blur.cu, carried through both
 // levels): a block of kTwoThreads = 192 threads owns a strip of kTwoRows x

@@ -62,9 +62,8 @@ def while_elements(x):
 
 
 # loop inputs at the edges: values that pass 2.4 after each of 1..5 steps
-# (2.4 itself and the values k/2 under it among them), that
-# never pass (-0.1 and under, -inf, NaN), that start past it (+inf), and
-# both zeros
+# (2.4 itself and the values k/2 under it among them), that never pass
+# (-0.1 and under, -inf, NaN), that start past it (+inf), and both zeros
 LOOP_EDGES = (2.4, 2.0, 1.9, 1.5, 1.4, 1.0, 0.9, 0.5, 0.4, 0.0, -0.0, -0.1, -0.5, -3.0,
               2.5, 7.0, 3e38, float("inf"), float("-inf"), float("nan"))
 SUM_KINDS = ("above", "below", "two")

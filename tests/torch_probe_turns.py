@@ -5,11 +5,11 @@ other constants), in turns, in one process on the card: T5, T7 e-g and T11
 (``probe_control``, ``csrc/probe_control.cu``), T16 (``probe_decimate``)
 and T17 (``probe_two_level``) of ``csrc/probe_pyramid.cu``, T13's g6
 (``probe_sample_grouped``) and g3 (``probe_banded_pair``) and T4
-(``probe_band_grad``) of ``csrc/probe_banded.cu``, and the window copy of
-T1, T2, T6, T7 a-c and T12 (``probe_windows``, ``csrc/probe_windows.cu``);
-and the card's smallest launch, an empty kernel of one block at 32 and at
-1024 threads, and at T16's grid, 75 blocks of 256 (its source written
-under ``build/turns/``). Run from the
+(``probe_band_grad``) of ``csrc/probe_banded.cu``, the window copy of T1,
+T2, T6, T7 a-c and T12 (``probe_windows``) and T7 d and h (``probe_fill``)
+of ``csrc/probe_windows.cu``; and the card's smallest launch, an empty
+kernel of one block at 32 and at 1024 threads, and at T16's grid of 75
+blocks of 256 (its source written under ``build/turns/``). Run from the
 root of a checkout:
 
     mkdir -p build/turns
@@ -26,30 +26,36 @@ its own under ``build/turns/``; the entry points it exports are put in the
 wrappers' places (``probe_control.KERNEL``, ``probe_pyramid.DECIMATE``,
 ``probe_pyramid.TWO_LEVEL``, ``probe_banded.SAMPLE_GROUPED``,
 ``probe_banded.BANDED_PAIR``, ``probe_banded.BAND_GRAD``,
-``probe_windows.WINDOWS``), so that every body runs through the same Python
-path. The checkout's own sources are the bodies "this_control",
-"this_pyramid", "this_banded" and "this_windows". Each body is first held
-against the plain versions, each call twice and the two calls bitwise
-equal: the control loops and branch bit for bit, every probe case and its
-seeded inputs, at shapes from 1x1 to 1x1024 on values at the loops' edges
-(NaN, +-inf, -0.0, past 2.4 from the start, passing after each step or
-never) and F's sums on each side of 2 and at 2.0, and at 8x128 on x and
-out 4 bytes off 16; T16 bit for bit at the probe's 480x640 and at W % 8 !=
-0, and on an input and an output off 16 bytes; T17 atol 1e-5 at the
-probe's 480x640, at 6x6 and at shapes with partial strips; g6 and g3
-exactly, at the probes' inputs, g6 at smaller windows with taps past every
-edge, g3 at K % 4 != 0 and on an output 4 bytes off 16; T4 rtol 1e-5 at
-the probe's inputs and at windows 16, 48 and 100 wide with the band past
-both edges; the window copy exactly, every probe case on its inputs and
-each of its five cases at windows 32, 30 and 48 wide with positions past
-every edge. Then, per case, the bodies are timed in turns (A B ... B A):
-by graph replay (``chip_smoke._graph_ms``, 50 calls a graph: the device
-alone) and by events (``chip_smoke._time_ms``, 200 calls: the host's call
-and the device); a case with a one-call PyTorch equivalent (T16's
+``probe_windows.WINDOWS``, ``probe_windows.FILL``), so that every body
+runs through the same Python path. The checkout's own sources are the
+bodies "this_control", "this_pyramid", "this_banded" and "this_windows".
+Each body is first held against the plain versions, each call twice and
+the two calls bitwise equal:
+
+- the control loops and branch bit for bit: every probe case and its
+  seeded twins, shapes from 1x1 to 1x1024 on values at the loops' edges
+  (NaN, +-inf, -0.0, past 2.4 from the start, passing after each step or
+  never) and F's sums on each side of 2 and at 2.0, 8x128 on x and out 4
+  bytes off 16;
+- T16 bit for bit at the probe's 480x640 and at W % 8 != 0, and on an
+  input and an output off 16 bytes; T7 d and h bit for bit;
+- T17 atol 1e-5 at the probe's 480x640, at 6x6 and at shapes with partial
+  strips;
+- g6 and g3 exactly, at the probes' inputs, g6 at smaller windows with
+  taps past every edge, g3 at K % 4 != 0 and on an output 4 bytes off 16;
+- T4 rtol 1e-5 at the probe's inputs and at windows 16, 48 and 100 wide
+  with the band past both edges;
+- the window copy exactly, every probe case on its inputs and each of its
+  five cases at windows 32, 30 and 48 wide with positions past every edge.
+
+Then, per case, the bodies are timed in turns (A B ... B A): by graph
+replay (``chip_smoke._graph_ms``, 50 calls a graph: the device alone) and
+by events (``chip_smoke._time_ms``, 200 calls: the host's call and the
+device). A case with a one-call PyTorch equivalent (T16's
 ``img[::2, ::2].contiguous()``) has that call timed by graph before and
-after its turns; the empty kernel by graph and events at each shape, in
-turns; B2's three ``sep5`` calls for T17's two levels by graph
-beside it. Prints the card and one JSON line (also written to
+after its turns; the empty kernel is timed by graph and events at each
+shape, in turns; B2's three ``sep5`` calls for T17's two levels by graph.
+Prints the card and one JSON line (also written to
 ``build/turns/turns.json``); exits 1 when a body disagrees with a plain
 version.
 """
@@ -83,12 +89,13 @@ OUT = ROOT / "build" / "turns"
 CSRC = ROOT / "slam_robot_tpu_torch" / "csrc"
 # entry point -> the wrapper's kernel that launches it
 KERNELS = {"probe_control": pc.KERNEL, "probe_decimate": pp.DECIMATE,
-           "probe_two_level": pp.TWO_LEVEL, "probe_sample_grouped": pb.SAMPLE_GROUPED,
-           "probe_banded_pair": pb.BANDED_PAIR, "probe_band_grad": pb.BAND_GRAD,
-           "probe_windows": pw.WINDOWS}
+           "probe_fill": pw.FILL, "probe_two_level": pp.TWO_LEVEL,
+           "probe_sample_grouped": pb.SAMPLE_GROUPED, "probe_banded_pair": pb.BANDED_PAIR,
+           "probe_band_grad": pb.BAND_GRAD, "probe_windows": pw.WINDOWS}
 # the probe cases (tools.all_cases) that each entry point runs, timed by name
 PROBE_CASES = {"probe_control": pc.KERNEL, "probe_decimate": pp.DECIMATE,
-               "probe_band_grad": pb.BAND_GRAD, "probe_windows": pw.WINDOWS}
+               "probe_fill": pw.FILL, "probe_band_grad": pb.BAND_GRAD,
+               "probe_windows": pw.WINDOWS}
 T17_SHAPES = [(480, 640), (6, 6), (50, 70), (102, 150), (34, 646)]
 CONTROL_SHAPES = [(1, 1), (8, 2), (8, 128), (24, 40), (1, 1024), (1023, 1), (3, 5)]
 DECIMATE_SHAPES = [(480, 640), (6, 8), (102, 150), (6, 10), (34, 646)]
@@ -163,6 +170,8 @@ def checks(dev, entries) -> dict:
         res.update(control_checks(dev))
     if "probe_decimate" in entries:
         res.update(decimate_checks(dev))
+    if "probe_fill" in entries:
+        res.update(exact_checks(dev, "probe_fill", "fill"))
     if "probe_two_level" in entries:
         res.update(t17_checks(dev))
     if "probe_sample_grouped" in entries:
@@ -192,13 +201,19 @@ def _off16(dev, n: int) -> torch.Tensor:
     return t
 
 
-def control_checks(dev) -> dict:
+def exact_checks(dev, entry: str, tag: str) -> dict:
+    """Every probe case of ``entry`` and its seeded twins, bit for bit."""
     res = {}
-    for case in probe_cases("probe_control") + probe_cases("probe_control", "SEEDED"):
+    for case in probe_cases(entry) + probe_cases(entry, "SEEDED"):
         args = case.inputs(dev)
         got = case.run(*args)
-        res[f"control {case.name}"] = {"ok": _same_bits(got, case.plain(*args)),
-                                       "repeatable": _same_bits(got, case.run(*args))}
+        res[f"{tag} {case.name}"] = {"ok": _same_bits(got, case.plain(*args)),
+                                     "repeatable": _same_bits(got, case.run(*args))}
+    return res
+
+
+def control_checks(dev) -> dict:
+    res = exact_checks(dev, "probe_control", "control")
     for mode in (pc.ROW_DONE, pc.FIXED, pc.REDUCE, pc.ELEMENT_DONE):
         for shape in CONTROL_SHAPES:
             if mode == pc.REDUCE:
@@ -221,12 +236,7 @@ def control_checks(dev) -> dict:
 
 
 def decimate_checks(dev) -> dict:
-    res = {}
-    for case in probe_cases("probe_decimate"):
-        args = case.inputs(dev)
-        got = case.run(*args)
-        res[f"decimate {case.name}"] = {"ok": bool(torch.equal(got, case.plain(*args))),
-                                        "repeatable": bool(torch.equal(got, case.run(*args)))}
+    res = exact_checks(dev, "probe_decimate", "decimate")
     for h, w in DECIMATE_SHAPES:
         img = _rand((h, w), h + w, dev)
         got = pp.decimate(img)
