@@ -1,0 +1,13 @@
+"""``ba_cg.spill_frame_ms``: the frame side's spill in a solve: the self device
+ms of the ``ba_cg_seg_f_spill`` span (the cat, the gather of the spill rows
+and the accumulating ``index_put_`` of every frame-side segment sum) over
+the solves the traced window recorded."""
+
+from benchmark.metrics import program_record
+
+
+def read(rec: dict):
+    spans = program_record.spans()
+    if spans is None or "ba_cg_seg_f_spill" not in spans:
+        return None
+    return spans["ba_cg_seg_f_spill"]["self_ms"] / spans["solves"]

@@ -42,12 +42,13 @@ package's ``psum``, and frame and point state stays on the home device.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 from torch.func import jacfwd, vmap
 
-from slam_robot_tpu_torch.device import span
+from slam_robot_tpu_torch.device import Tally, span, tracing
 from slam_robot_tpu_torch.ops import projection as proj
 from slam_robot_tpu_torch.ops import quaternion as quat
 from slam_robot_tpu_torch.ops.ba import (
@@ -64,8 +65,22 @@ from slam_robot_tpu_torch.ops.obs_shards import ObsShards, split_and_solve
 F32 = torch.float32
 I32 = torch.int32
 
+# the padded plans' spill, by side (p: points, f: frame slots), fed only while
+# the spans stamp the device (device.tracing): plans.<side> the plans made,
+# walked.<side> the rows their spill sums walk, spill_rows.<side> the rows
+# that spill (each a device count, summed at the read), run.<side> the longest
+# run of one segment index a spill sum walks (taken at the read)
+SPILL = Tally()
 
-def _padded_plan(seg_id, n_segments: int, K: int, spill_cap: int):
+
+def _longest_run(sorted_ids) -> int:
+    """The longest run of one value in a sorted index tensor (a host read)."""
+    if sorted_ids.numel() == 0:
+        return 0
+    return int(torch.unique_consecutive(sorted_ids, return_counts=True)[1].max())
+
+
+def _padded_plan(seg_id, n_segments: int, K: int, spill_cap: int, side: str):
     """Gather plan for segment sums into ``[n_segments, D]``.
 
     seg_id [O] integer segment of each row; ids >= n_segments are left out
@@ -74,7 +89,8 @@ def _padded_plan(seg_id, n_segments: int, K: int, spill_cap: int):
     [S], spill_seg [S], spill_exceeded bool), S = min(O, spill_cap); the
     index tensors are int64. Rows ranked past K within their segment go to
     the compacted spill (sentinels: row O, segment n_segments); only spill
-    overflow beyond spill_cap loses rows, which the flag reports."""
+    overflow beyond spill_cap loses rows, which the flag reports. ``side``
+    names the plan's counters in :data:`SPILL`."""
     dev = seg_id.device
     O = seg_id.shape[0]
     order = torch.argsort(seg_id, stable=True)
@@ -95,21 +111,31 @@ def _padded_plan(seg_id, n_segments: int, K: int, spill_cap: int):
     sp_is = spill[sp_sel]
     spill_rows = torch.where(sp_is, order[sp_sel], O)
     spill_seg = torch.where(sp_is, sidx[sp_sel].long(), n_segments)
-    exceeded = torch.sum(spill, dtype=I32) > spill_cap
+    n_spill = torch.sum(spill, dtype=I32)
+    exceeded = n_spill > spill_cap
+    if tracing():
+        # spill_seg is sorted, the sentinel segment last: its runs are the
+        # runs of equal indices that the accumulating index_put_ walks
+        SPILL.add(f"plans.{side}", 1)
+        SPILL.add(f"walked.{side}", spill_seg.shape[0])
+        SPILL.keep(f"spill_rows.{side}", n_spill)
+        SPILL.peak(f"run.{side}", functools.partial(_longest_run, spill_seg))
     return pad_idx, spill_rows, spill_seg, exceeded
 
 
-def _padded_seg_sum(vals, pad_idx, spill_rows, spill_seg):
+def _padded_seg_sum(vals, pad_idx, spill_rows, spill_seg, side: str):
     """Sum ``vals`` rows per segment through the :func:`_padded_plan`
     tables. vals [O, D] -> [n_segments, D]; a zero row appended to ``vals``
     makes the O sentinel add nothing, and a scratch row takes the spill's
-    sentinel segment."""
+    sentinel segment. The pad and the spill are spanned apart, by ``side``."""
     D = vals.shape[-1]
-    vz = torch.cat([vals, vals.new_zeros((1, D))])
-    out = vz[pad_idx].sum(1)
-    n = out.shape[0]
-    out = torch.cat([out, out.new_zeros((1, D))])
-    out.index_put_((spill_seg,), vz[spill_rows], accumulate=True)
+    with span(f"ba_cg_seg_{side}_pad"):
+        vz = torch.cat([vals, vals.new_zeros((1, D))])
+        out = vz[pad_idx].sum(1)
+    with span(f"ba_cg_seg_{side}_spill"):
+        n = out.shape[0]
+        out = torch.cat([out, out.new_zeros((1, D))])
+        out.index_put_((spill_seg,), vz[spill_rows], accumulate=True)
     return out[:n]
 
 
@@ -149,57 +175,58 @@ def solve_shards(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_unc
     def on(x, s):
         return x.to(s["f"].device)
 
-    sh = []
-    for t in shards.tables:
-        f = t["obs_frame"].clamp(min=0).long()
-        sh.append(dict(f=f, p=t["obs_point"].clamp(min=0).long(),
-                       c=frame_cam.to(f.device)[f].long(), px=t["obs_px"], ok=t["obs_ok"]))
+    with span("ba_cg_plan"):
+        sh = []
+        for t in shards.tables:
+            f = t["obs_frame"].clamp(min=0).long()
+            sh.append(dict(f=f, p=t["obs_point"].clamp(min=0).long(),
+                           c=frame_cam.to(f.device)[f].long(), px=t["obs_px"], ok=t["obs_ok"]))
 
-    frame_has_obs = shards.sum(lambda s: _count_into(
-        torch.where(s["ok"], s["f"], Fn), Fn), sh) > 0
-    n_used = torch.sum(present & frame_has_obs, dtype=I32)
-    solvable = n_used >= 2
-    free_f = free_frame & frame_has_obs & solvable
+        frame_has_obs = shards.sum(lambda s: _count_into(
+            torch.where(s["ok"], s["f"], Fn), Fn), sh) > 0
+        n_used = torch.sum(present & frame_has_obs, dtype=I32)
+        solvable = n_used >= 2
+        free_f = free_frame & frame_has_obs & solvable
 
-    point_in = shards.sum(lambda s: _count_into(torch.where(s["ok"], s["p"], P), P), sh) > 0
-    fluid = shards.sum(lambda s: _count_into(
-        torch.where(s["ok"] & on(free_f, s)[s["f"]], s["p"], P), P), sh) > 0
-    free_p = point_in & (fluid | (point_uncertainty > cfg.uncertainty_free)) & solvable
+        point_in = shards.sum(lambda s: _count_into(torch.where(s["ok"], s["p"], P), P), sh) > 0
+        fluid = shards.sum(lambda s: _count_into(
+            torch.where(s["ok"] & on(free_f, s)[s["f"]], s["p"], P), P), sh) > 0
+        free_p = point_in & (fluid | (point_uncertainty > cfg.uncertainty_free)) & solvable
 
-    slot_of = torch.where(free_f, torch.cumsum(free_f, 0) - 1, W).clamp(max=W)
-    for s in sh:
-        s["slot"] = on(slot_of, s)[s["f"]]
-
-    # frame 0 has no predecessor; the roll's wrapped row is masked off
-    prior_f = free_f & torch.roll(present, 1) & (torch.arange(Fn, device=dev) >= 1)
-
-    # segment sums O -> [P,*] and O -> [W,*]: once per assembly and twice in
-    # every CG product
-    if cfg.layout == "padded":
+        slot_of = torch.where(free_f, torch.cumsum(free_f, 0) - 1, W).clamp(max=W)
         for s in sh:
-            s["plan_p"] = _padded_plan(torch.where(s["ok"], s["p"], P), P,
-                                       cfg.pad_obs_per_point, cfg.pad_spill)
-            s["plan_f"] = _padded_plan(
-                torch.where(s["ok"] & (s["slot"] < W), s["slot"], W), W,
-                cfg.pad_obs_per_frame, cfg.pad_spill)
-        spill_ok = shards.sum(
-            lambda s: (s["plan_p"][3] | s["plan_f"][3]).to(I32), sh) == 0
+            s["slot"] = on(slot_of, s)[s["f"]]
 
-        def seg_p(s, vals):
-            return _padded_seg_sum(vals, *s["plan_p"][:3])
+        # frame 0 has no predecessor; the roll's wrapped row is masked off
+        prior_f = free_f & torch.roll(present, 1) & (torch.arange(Fn, device=dev) >= 1)
 
-        def seg_f(s, vals):
-            return _padded_seg_sum(vals, *s["plan_f"][:3])
-    elif cfg.layout == "scatter":
-        spill_ok = torch.ones((), dtype=torch.bool, device=dev)
+        # segment sums O -> [P,*] and O -> [W,*]: once per assembly and twice in
+        # every CG product
+        if cfg.layout == "padded":
+            for s in sh:
+                s["plan_p"] = _padded_plan(torch.where(s["ok"], s["p"], P), P,
+                                           cfg.pad_obs_per_point, cfg.pad_spill, "p")
+                s["plan_f"] = _padded_plan(
+                    torch.where(s["ok"] & (s["slot"] < W), s["slot"], W), W,
+                    cfg.pad_obs_per_frame, cfg.pad_spill, "f")
+            spill_ok = shards.sum(
+                lambda s: (s["plan_p"][3] | s["plan_f"][3]).to(I32), sh) == 0
 
-        def seg_p(s, vals):
-            return vals.new_zeros((P, vals.shape[-1])).index_add_(0, s["p"], vals)
+            def seg_p(s, vals):
+                return _padded_seg_sum(vals, *s["plan_p"][:3], "p")
 
-        def seg_f(s, vals):
-            return vals.new_zeros((W + 1, vals.shape[-1])).index_add_(0, s["slot"], vals)[:W]
-    else:
-        raise ValueError(f"layout {cfg.layout!r}: 'padded' or 'scatter'")
+            def seg_f(s, vals):
+                return _padded_seg_sum(vals, *s["plan_f"][:3], "f")
+        elif cfg.layout == "scatter":
+            spill_ok = torch.ones((), dtype=torch.bool, device=dev)
+
+            def seg_p(s, vals):
+                return vals.new_zeros((P, vals.shape[-1])).index_add_(0, s["p"], vals)
+
+            def seg_f(s, vals):
+                return vals.new_zeros((W + 1, vals.shape[-1])).index_add_(0, s["slot"], vals)[:W]
+        else:
+            raise ValueError(f"layout {cfg.layout!r}: 'padded' or 'scatter'")
 
     def residuals(s, fq, ft, locs):
         f = s["f"]
@@ -208,6 +235,7 @@ def solve_shards(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_unc
         use = s["ok"] & valid & torch.all(torch.isfinite(r), dim=-1)
         return torch.where(use[:, None], r, 0.0), use
 
+    @span("ba_cg_cost")
     def cost_of(fq, ft, locs):
         def part(s):
             r, use = residuals(s, fq, ft, locs)
@@ -240,38 +268,39 @@ def solve_shards(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_unc
                     seg_f(s, torch.einsum("oia,oib,o->oab", jf, jf, w).reshape(O, 36)),
                     seg_f(s, -torch.einsum("oia,oi->oa", jf, wr)))
 
-        # landmark blocks and gradient, summed over the shards before the
-        # replicated prior and damping terms are added once
-        Cp, bp, Hff, bf = shards.sum(assemble, sh)
-        Cp = Cp.reshape(P, 4, 4)
-        Hff = Hff.reshape(W, 6, 6)
+        with span("ba_cg_linearize"):
+            # landmark blocks and gradient, summed over the shards before the
+            # replicated prior and damping terms are added once
+            Cp, bp, Hff, bf = shards.sum(assemble, sh)
+            Cp = Cp.reshape(P, 4, 4)
+            Hff = Hff.reshape(W, 6, 6)
 
-        # frame-distance prior on the block diagonal; frames without a slot
-        # write to a scratch row
-        dvec = ft - torch.roll(ft, 1, dims=0)
-        dnorm = torch.linalg.norm(dvec, dim=-1)
-        dhat = dvec / torch.clamp(dnorm, min=1e-9)[:, None]
-        rp = cfg.frame_dist_weight * (dnorm - cfg.baseline)
-        wp = torch.where(prior_f, _cauchy_weight(rp * rp, cfg.frame_dist_loss), 0.0)
-        jp_t = cfg.frame_dist_weight * dhat
-        blk = torch.einsum("fa,fb,f->fab", jp_t, jp_t, wp)
-        Hx = torch.cat([Hff, Hff.new_zeros((1, 6, 6))])
-        Hx[:, 3:, 3:] += Hx.new_zeros((W + 1, 3, 3)).index_add_(
-            0, slot_of, torch.where(prior_f[:, None, None], blk, 0.0))
-        bx = torch.cat([bf, bf.new_zeros((1, 6))])
-        bx[:, 3:] += bx.new_zeros((W + 1, 3)).index_add_(
-            0, slot_of, torch.where(prior_f[:, None], -(wp * rp)[:, None] * jp_t, 0.0))
-        Hff, bf = Hx[:W], bx[:W]
+            # frame-distance prior on the block diagonal; frames without a slot
+            # write to a scratch row
+            dvec = ft - torch.roll(ft, 1, dims=0)
+            dnorm = torch.linalg.norm(dvec, dim=-1)
+            dhat = dvec / torch.clamp(dnorm, min=1e-9)[:, None]
+            rp = cfg.frame_dist_weight * (dnorm - cfg.baseline)
+            wp = torch.where(prior_f, _cauchy_weight(rp * rp, cfg.frame_dist_loss), 0.0)
+            jp_t = cfg.frame_dist_weight * dhat
+            blk = torch.einsum("fa,fb,f->fab", jp_t, jp_t, wp)
+            Hx = torch.cat([Hff, Hff.new_zeros((1, 6, 6))])
+            Hx[:, 3:, 3:] += Hx.new_zeros((W + 1, 3, 3)).index_add_(
+                0, slot_of, torch.where(prior_f[:, None, None], blk, 0.0))
+            bx = torch.cat([bf, bf.new_zeros((1, 6))])
+            bx[:, 3:] += bx.new_zeros((W + 1, 3)).index_add_(
+                0, slot_of, torch.where(prior_f[:, None], -(wp * rp)[:, None] * jp_t, 0.0))
+            Hff, bf = Hx[:W], bx[:W]
 
-        lam = cfg.damping
-        eye6 = torch.eye(6, dtype=F32, device=dev)
-        eye4 = torch.eye(4, dtype=F32, device=dev)
-        Hff_d = (Hff + lam * eye6 * torch.clamp(
-            torch.einsum("fii->f", Hff)[:, None, None] / 6.0, min=1e-6) + 1e-8 * eye6)
-        Cd = (Cp + lam * eye4 * torch.clamp(
-            torch.einsum("pii->p", Cp)[:, None, None] / 4.0, min=1e-6) + 1e-8 * eye4)
-        Cinv = torch.where(free_p[:, None, None], inv4x4(Cd), 0.0)
-        slot_active = torch.arange(W, device=dev) < torch.sum(free_f)
+            lam = cfg.damping
+            eye6 = torch.eye(6, dtype=F32, device=dev)
+            eye4 = torch.eye(4, dtype=F32, device=dev)
+            Hff_d = (Hff + lam * eye6 * torch.clamp(
+                torch.einsum("fii->f", Hff)[:, None, None] / 6.0, min=1e-6) + 1e-8 * eye6)
+            Cd = (Cp + lam * eye4 * torch.clamp(
+                torch.einsum("pii->p", Cp)[:, None, None] / 4.0, min=1e-6) + 1e-8 * eye4)
+            Cinv = torch.where(free_p[:, None, None], inv4x4(Cd), 0.0)
+            slot_active = torch.arange(W, device=dev) < torch.sum(free_f)
 
         def landmark_sum(x):  # [W,6] -> sum over shards of Jp^T w Jf x, [P,4]
             xz = torch.cat([x, zrow6])
@@ -293,51 +322,54 @@ def solve_shards(frame_quat, frame_trans, frame_cam, cam_k, point_loc, point_unc
             return torch.where(slot_active[:, None],
                                torch.einsum("wab,wb->wa", Hff_d, x) - y, x)
 
-        # rhs = bf - E C^-1 bp
-        e_cb = frame_sum(torch.einsum("pab,pb->pa", Cinv, bp))
-        rhs = torch.where(slot_active[:, None], bf - e_cb, 0.0)
+        with span("ba_cg_pcg"):
+            # rhs = bf - E C^-1 bp
+            e_cb = frame_sum(torch.einsum("pab,pb->pa", Cinv, bp))
+            rhs = torch.where(slot_active[:, None], bf - e_cb, 0.0)
 
-        # Jacobi preconditioner (SCHUR_JACOBI); inv_ex checks nothing on
-        # the host
-        if cfg.precond == "block":
-            Minv = torch.where(slot_active[:, None, None],
-                               torch.linalg.inv_ex(Hff_d).inverse, eye6)
+            # Jacobi preconditioner (SCHUR_JACOBI); inv_ex checks nothing on
+            # the host
+            if cfg.precond == "block":
+                Minv = torch.where(slot_active[:, None, None],
+                                   torch.linalg.inv_ex(Hff_d).inverse, eye6)
 
-            def precond(z):
-                return torch.einsum("wab,wb->wa", Minv, z)
-        else:
-            dinv = 1.0 / torch.clamp(torch.diagonal(Hff_d, dim1=1, dim2=2), min=1e-12)
+                def precond(z):
+                    return torch.einsum("wab,wb->wa", Minv, z)
+            else:
+                dinv = 1.0 / torch.clamp(torch.diagonal(Hff_d, dim1=1, dim2=2), min=1e-12)
 
-            def precond(z):
-                return z * dinv
+                def precond(z):
+                    return z * dinv
 
-        x = torch.zeros((W, 6), dtype=F32, device=dev)
-        rr = rhs
-        z = precond(rhs)
-        pdir = z
-        rz = torch.sum(rhs * z)
-        for _ in range(cfg.cg_iters):
-            Ap = schur_matvec(pdir)
-            alpha = rz / torch.clamp(torch.sum(pdir * Ap), min=1e-20)
-            x = x + alpha * pdir
-            rr = rr - alpha * Ap
-            z = precond(rr)
-            rz_new = torch.sum(rr * z)
-            beta = rz_new / torch.clamp(rz, min=1e-20)
-            pdir = z + beta * pdir
-            rz = rz_new
+            x = torch.zeros((W, 6), dtype=F32, device=dev)
+            rr = rhs
+            z = precond(rhs)
+            pdir = z
+            rz = torch.sum(rhs * z)
+            for _ in range(cfg.cg_iters):
+                Ap = schur_matvec(pdir)
+                alpha = rz / torch.clamp(torch.sum(pdir * Ap), min=1e-20)
+                x = x + alpha * pdir
+                rr = rr - alpha * Ap
+                z = precond(rr)
+                rz_new = torch.sum(rr * z)
+                beta = rz_new / torch.clamp(rz, min=1e-20)
+                pdir = z + beta * pdir
+                rz = rz_new
 
-        # back-substitute the points
-        dp = torch.einsum("pab,pb->pa", Cinv, bp - landmark_sum(x))
-        dp = torch.where(free_p[:, None], dp, 0.0)
+        with span("ba_cg_update"):
+            # back-substitute the points
+            dp = torch.einsum("pab,pb->pa", Cinv, bp - landmark_sum(x))
+            dp = torch.where(free_p[:, None], dp, 0.0)
 
-        upd = (free_f & (slot_of < W))[:, None]
-        dsel = torch.cat([x, zrow6])[slot_of]
-        dxi = torch.where(upd, dsel[:, :3], 0.0)
-        dt = torch.where(upd, dsel[:, 3:], 0.0)
-        for s in sh:  # the step's Jacobians are spent
-            del s["jf"], s["jp"], s["w"]
-        return torch.where(upd, quat.retract(fq, dxi), fq), ft + dt, locs + dp
+            upd = (free_f & (slot_of < W))[:, None]
+            dsel = torch.cat([x, zrow6])[slot_of]
+            dxi = torch.where(upd, dsel[:, :3], 0.0)
+            dt = torch.where(upd, dsel[:, 3:], 0.0)
+            for s in sh:  # the step's Jacobians are spent
+                del s["jf"], s["jp"], s["w"]
+            fq, ft, locs = torch.where(upd, quat.retract(fq, dxi), fq), ft + dt, locs + dp
+        return fq, ft, locs
 
     cost0 = cost_of(frame_quat, frame_trans, point_loc)
     fq, ft, locs = frame_quat, frame_trans, point_loc

@@ -7,7 +7,9 @@ solve after a first one, then profiles one more (``profile_trace.profile``)
 and prints the GN iters/s, the total device self time, the device busy
 share against the unprofiled solves on either side of the profiled one
 (the timed solve and one more), device ms a GN iteration by category
-(``profile_trace.CATEGORIES``) and the top kernels. The line names the
+(``profile_trace.CATEGORIES``) and the top kernels, then the device ms a
+solve by the solver's own spans (self, inclusive, calls; stamped while the
+profiler ran) and its spill counters (``ba_cg.SPILL``). The line names the
 layout: in the port ``scatter`` adds with atomics, in no fixed order, and
 ``padded`` comes out the same every run.
 
@@ -20,11 +22,13 @@ no result line.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
 import torch
 
+from slam_robot_tpu_torch.device import SPAN_MS
 from slam_robot_tpu_torch.ops import ba_cg
 from slam_robot_tpu_torch.tools import profile_trace, profiling
 from slam_robot_tpu_torch.utils import synthetic
@@ -57,18 +61,41 @@ def solve_rate(args: tuple, cgc: ba_cg.CGConfig, dev: torch.device):
 
 def run(args: tuple, cgc: ba_cg.CGConfig, dev: torch.device, top: int = 30,
         out_dir: str | None = TRACE_DIR, emit=print) -> dict:
-    """Time and profile the solve; prints the original's lines and returns
-    ``profile_trace.profile``'s figures a GN iteration with
-    ``gn_iters_per_s``, ``solve_s``, ``first_s`` and ``cost``."""
+    """Time and profile the solve; prints the original's lines, then the
+    span table (:func:`span_table`), and returns ``profile_trace.profile``'s
+    figures a GN iteration with ``gn_iters_per_s``, ``solve_s``,
+    ``first_s``, ``cost``, ``device_ms_by_span`` (a solve's) and
+    ``spill``."""
     res, dt, rate, first_s = solve_rate(args, cgc, dev)
     emit(f"first solve: {first_s:.0f}s")
     emit(f"solve: {dt:.2f}s = {rate:.2f} GN iters/s (cost {float(res.cost):.1f}, "
          f"layout {cgc.layout})")
     profile_trace.CAPTURES.before_next(2)  # solve_rate's two solves
+    SPAN_MS.reset_device()
+    ba_cg.SPILL.reset()
     p = profile_trace.profile(lambda: ba_cg.solve(*args, cgc), dev, cgc.gn_iters, out_dir, top,
                               wall_before_ms=1e3 * dt)
     profile_trace.report(p, "GN iter", emit)
-    return dict(p, gn_iters_per_s=rate, solve_s=dt, first_s=first_s, cost=float(res.cost))
+    spans, spill = span_table(emit)
+    return dict(p, gn_iters_per_s=rate, solve_s=dt, first_s=first_s, cost=float(res.cost),
+                device_ms_by_span=spans, spill=spill)
+
+
+def span_table(emit=print) -> tuple:
+    """Device ms a solve by span over the solves stamped since the last
+    ``SPAN_MS.reset_device()`` (the profiled ones), largest self first, and
+    the spill counters: ({name: {self_ms, ms, calls}}, counters)."""
+    spans = SPAN_MS.read_device()
+    n = spans.get("ba_cg_solve", {}).get("calls", 0)
+    per = {k: {"self_ms": v["self_ms"] / n, "ms": v["ms"] / n, "calls": v["calls"] / n}
+           for k, v in sorted(spans.items(), key=lambda kv: -kv[1]["self_ms"])} if n else {}
+    emit(f"\n-- device ms/solve by span over {n} profiled solves (self | inclusive | "
+         f"calls/solve) --")
+    for k, v in per.items():
+        emit(f"{k:40s} {v['self_ms']:12.3f} {v['ms']:12.3f} {v['calls']:8.1f}")
+    spill = ba_cg.SPILL.read()
+    emit(f"spill counters over those solves {json.dumps(spill, sort_keys=True)}")
+    return per, spill
 
 
 def main(argv=None) -> int:

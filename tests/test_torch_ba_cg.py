@@ -54,7 +54,7 @@ def test_padded_plan_and_seg_sum_match(case):
     n_seg, O, K, cap = PLANS[case]
     ids, vals = _seg_ids(n_seg, O, seed=len(case))
     jplan = j_cg._padded_plan(ids, n_seg, K, cap)
-    tplan = t_cg._padded_plan(torch.as_tensor(ids), n_seg, K, cap)
+    tplan = t_cg._padded_plan(torch.as_tensor(ids), n_seg, K, cap, "p")
     for name, got, want in zip(("pad_idx", "spill_rows", "spill_seg", "exceeded"),
                                tplan, jplan):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=name)
@@ -63,7 +63,7 @@ def test_padded_plan_and_seg_sum_match(case):
     assert (case == "overflows") == exceeded
     assert (n_spill > 0) == (case != "fits")
 
-    got = t_cg._padded_seg_sum(torch.as_tensor(vals), *tplan[:3]).numpy()
+    got = t_cg._padded_seg_sum(torch.as_tensor(vals), *tplan[:3], "p").numpy()
     want = np.asarray(j_cg._padded_seg_sum(vals, *jplan[:3]))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     if not exceeded:
